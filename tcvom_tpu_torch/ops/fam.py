@@ -1,0 +1,62 @@
+"""TAM/FAM windowed cross-frame attention (port of tcvom_tpu/ops/fam.py).
+
+  logits[b, y, x, p] = <q[b,y,x,:], k[b, y+dy(p), x+dx(p), :]> / sqrt(C)
+  att = softmax_p(logits)
+  out[b, y, x, :] = mask[b,y,x] * sum_p att[p] * k[b, y+dy, x+dx, :]
+
+Neighbours outside the frame are zero vectors, so their logit is exactly 0
+and they stay in the softmax (F.unfold's zero padding). The weighted sum is
+of k, not of a value tensor. Patch index p is row-major over (dy, dx).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from tcvom_tpu_torch.ops import fam_kernel
+
+
+def _shifts(window: int):
+    r = window // 2
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            yield dy, dx
+
+
+def fam_attention_ref(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+                      window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain dense masked attention. q, k: ``[B, H, W, C]``; mask:
+    ``[B, H, W, 1]`` in {0, 1}. Returns ``(out [B, H, W, C], logits
+    [B, H, W, window^2])``, both zeroed outside the mask and in q's dtype.
+    Computed in f32 whatever the input dtype, as the kernel accumulates."""
+    b, h, w, c = q.shape
+    r = window // 2
+    scale = 1.0 / math.sqrt(c)
+    qf, m = q.float(), mask.float()
+    kp = F.pad(k.float(), (0, 0, r, r, r, r))
+    shifted = [kp[:, r + dy:r + dy + h, r + dx:r + dx + w]
+               for dy, dx in _shifts(window)]
+    logits = torch.stack([(qf * ks).sum(-1) * scale for ks in shifted], -1)
+    att = torch.softmax(logits, dim=-1)
+    out = torch.zeros_like(qf)
+    for p, ks in enumerate(shifted):
+        out += att[..., p:p + 1] * ks
+    return (out * m).to(q.dtype), (logits * m).to(q.dtype)
+
+
+def fam_attention(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+                  window: int, need_logits: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Dispatch: the plain version for CPU tensors, the CUDA kernel
+    (``csrc/fam_window.cu``) for CUDA tensors. Returns ``(out, logits)``;
+    logits is None unless ``need_logits``."""
+    if q.device.type == "cpu":
+        out, logits = fam_attention_ref(q, k, mask, window)
+        return out, (logits if need_logits else None)
+    if need_logits:
+        raise NotImplementedError(
+            "the logits-writing FAM kernels (training) are not ported yet: "
+            "ROADMAP.md Queue 2 items 3-4")
+    return fam_kernel.fam_window(q, k, mask, window), None

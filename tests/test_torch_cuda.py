@@ -1,0 +1,122 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Run on a machine with an NVIDIA GPU (and no JAX, hence no conftest):
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+Without a card every test here skips (the check runs in a fixture, so every
+pytest worker collects the same tests).
+"""
+import numpy as np
+import pytest
+import torch
+
+from tcvom_tpu_torch.infer.predict import StreamingPredictor
+from tcvom_tpu_torch.models.full_model import TaskConfig
+from tcvom_tpu_torch.models.registry import build_model
+from tcvom_tpu_torch.ops import cuda_build, edt_kernel, fam, fam_kernel
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def rng():
+    # local: on the card the suite runs with --noconftest (no JAX there)
+    return np.random.RandomState(0)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("r,w,t", [(130, 70, 32), (200, 300, 32),
+                                   (64, 1920, 256), (3, 5, 0)])
+def test_edt_kernel_bit_exact(dev, rng, r, w, t):
+    g2 = np.where(rng.rand(r, w) < 0.05, 0.0,
+                  rng.randint(0, 3000, (r, w))).astype(np.float32)
+    g2 = torch.from_numpy(g2).to(dev)
+    got = edt_kernel.edt_row_pass(g2, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, edt_kernel.edt_row_pass_ref(g2, t))
+
+
+def _fam_inputs(rng, shape, dtype, dev):
+    b, h, w, c = shape
+    q = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32))
+    k = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32))
+    m = torch.from_numpy((rng.rand(b, h, w, 1) > 0.4).astype(np.float32))
+    return [t.to(dev, dtype) for t in (q, k, m)]
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((2, 8, 16, 8), 3), ((1, 16, 24, 32), 7), ((2, 16, 24, 256), 7),
+    ((1, 5, 7, 300), 5), ((1, 3, 4, 1), 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fam_kernel_matches_plain(dev, rng, shape, window, dtype):
+    q, k, m = _fam_inputs(rng, shape, dtype, dev)
+    got, lg = fam.fam_attention(q, k, m, window)
+    torch.cuda.synchronize()
+    want, _ = fam.fam_attention_ref(q, k, m, window)
+    assert lg is None and got.dtype == dtype
+    # f32: summation order only; bf16: both accumulate in f32 and round the
+    # output once to bf16 (2^-8 relative)
+    tol = (dict(atol=1e-5, rtol=0) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_fam_need_logits_not_ported_on_card(dev, rng):
+    q, k, m = _fam_inputs(rng, (1, 4, 4, 8), torch.float32, dev)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        fam.fam_attention(q, k, m, 3, need_logits=True)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev, rng):
+    q, k, m = _fam_inputs(rng, (1, 4, 6, 8), torch.float32, dev)
+    with pytest.raises(ValueError):
+        fam_kernel.fam_window(q.transpose(1, 2), k, m, 3)      # layout
+    with pytest.raises(ValueError):
+        fam_kernel.fam_window(q, k.bfloat16(), m, 3)           # dtype
+    with pytest.raises(ValueError):
+        fam_kernel.fam_window(q, k, m, 4)                      # even window
+    with pytest.raises(ValueError):
+        edt_kernel.edt_row_pass(q[0, :, :, 0], 2)              # stride
+    with pytest.raises(ValueError):
+        edt_kernel.edt_row_pass(torch.zeros(4, 4, device=dev), 10 ** 5)
+
+
+def test_launch_counts(dev, rng):
+    q, k, m = _fam_inputs(rng, (1, 4, 6, 8), torch.float32, dev)
+    cuda_build.LAUNCHES.clear()
+    fam.fam_attention(q, k, m, 3)
+    edt_kernel.edt_row_pass(torch.zeros(4, 8, device=dev), 2)
+    edt_kernel.edt_row_pass_ref(torch.zeros(4, 8, device=dev), 2)
+    assert cuda_build.LAUNCHES == {"fam_window": 1, "edt_row": 1}
+
+
+def test_stream_on_card_matches_cpu(dev, rng):
+    """Small f32 stream through both kernels against the CPU (plain) run of
+    the same weights: uint8 mattes within one level."""
+    model = build_model("vmn_fba", agg_window=3, layers=(1, 1, 1, 1),
+                        device="cpu")
+    cfg = TaskConfig(model="vmn_fba", agg_window=3)
+    imgs = rng.randint(0, 256, (3, 1, 64, 96, 3)).astype(np.uint8)
+    tri = np.zeros((1, 64, 96, 1), np.uint8)
+    tri[:, 10:50, 10:80] = 128
+    tri[:, 25:35, 30:60] = 255
+    outs = {}
+    for where in ("cpu", "cuda"):
+        sp = StreamingPredictor(model, cfg, fgbg=False, quantize=True,
+                                device=where)
+        state, res = None, []
+        for img in imgs:
+            state, o = sp.step(state, img, tri)
+            if o is not None:
+                res.append(o.cpu().numpy())
+        res.append(sp.flush(state).cpu().numpy())
+        outs[where] = np.stack(res).astype(int)
+    diff = np.abs(outs["cpu"] - outs["cuda"])
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
