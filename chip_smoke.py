@@ -15,11 +15,21 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    random weights from a seed): once through the kernels, once with the
    plain versions substituted; the uint8 mattes agree within one level;
 5. the main path in bf16, as users run it: the launch counts must equal
-   the encodes (EDT) and decodes (FAM); steady-state times and memory.
+   the encodes (EDT) and decodes (FAM); steady-state times and memory;
+6. train_kernels: the logits-writing FAM kernel against its plain version
+   at the training path's shapes (f32 to 1e-5, bf16 to 2e-2), the autograd
+   Function's dq, dk against the plain version's autograd, and its times;
+   the EDT row pass bit-exact at the inputs make_trimap gives it in the
+   train and validation steps, with its times at the train step's;
+7. train_f32: the video trainer at full width and depth (vmn_fba, B=1,
+   S=5, 512x512, Adam, poly lr 1e-4, weight decay 1e-4, synthetic seeded
+   clips): one step through the kernels against one through the plain
+   versions (losses, gradients, launch counts), five more steps (finite
+   losses, ms, peak memory) and one validation step (B=6, S=3, 544x960).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
-non-zero before it. ``--profile FILE`` adds a torch.profiler breakdown of
-two bf16 steps, its table written to FILE.
+non-zero before it. ``--profile FILE`` adds torch.profiler breakdowns of
+two bf16 stream steps and two train steps, their tables written to FILE.
 """
 from __future__ import annotations
 
@@ -106,9 +116,35 @@ def run_stream(sp, frames):
     return outs
 
 
+def hold_edt(edt_kernel, x, t: int, timed: bool = False, **where):
+    """Kernel A against its plain version at ``x`` [R, W], truncation
+    ``t``: bit-exact. With ``timed``, its CUDA-event time, the plain
+    version's and the bound, returned."""
+    got = edt_kernel.edt_row_pass_cuda(x, t)
+    torch.cuda.synchronize()
+    want = edt_kernel.edt_row_pass_ref(x, t)
+    err = (got - want).abs().max().item()
+    emit(phase="check", kernel="edt_row", **where, shape=list(x.shape),
+         trunc=t, tolerance="bit-exact", max_abs_err=err)
+    if not torch.equal(got, want):
+        fail(f"edt_row {tuple(x.shape)} T={t}: not bit-exact, max err {err}")
+    if not timed:
+        return None
+    ms = time_ms(lambda: edt_kernel.edt_row_pass_cuda(x, t), 20)
+    plain_ms = time_ms(lambda: edt_kernel.edt_row_pass_ref(x, t), 3)
+    r, w = x.shape
+    b_ms, b_by = bound(2 * r * w * 4, 3 * t * r * w, torch.float32)
+    res = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    emit(phase="time", kernel="edt_row", **where, shape=list(x.shape),
+         trunc=t, **res)
+    return res
+
+
 def check_edt(edt_kernel, distance, tri):
-    """Kernel A at the main path's input (the column pass of this frame's
-    bg/fg planes, [2*1088, 1920], T = 256) and at a ragged shape."""
+    """Kernel A at the serving path's input (the column pass of this
+    frame's bg/fg planes, [2*1088, 1920], T = 256), timed, and at a ragged
+    shape."""
     seeds = torch.stack([tri[0, ..., 0] == 0, tri[0, ..., 0] == 255])
     g = distance._dist1d_along_axis(seeds, axis=1, truncate=256)
     g2 = torch.clamp_max(g * g, 1e7).reshape(-1, W).contiguous()
@@ -116,27 +152,42 @@ def check_edt(edt_kernel, distance, tri):
     ragged = torch.from_numpy(np.where(
         rng.rand(130, 70) < 0.05, 0.0,
         rng.randint(0, 3000, (130, 70))).astype(np.float32)).cuda()
-    for x, t in ((g2, 256), (ragged, 32)):
-        got = edt_kernel.edt_row_pass_cuda(x, t)
-        torch.cuda.synchronize()
-        want = edt_kernel.edt_row_pass_ref(x, t)
-        if not torch.equal(got, want):
-            fail(f"edt_row {tuple(x.shape)} T={t}: not bit-exact, max err "
-                 f"{(got - want).abs().max().item()}")
-        emit(phase="check", kernel="edt_row", shape=list(x.shape), trunc=t,
-             tolerance="bit-exact", max_abs_err=0.0)
-    ms = time_ms(lambda: edt_kernel.edt_row_pass_cuda(g2, 256), 20)
-    plain_ms = time_ms(lambda: edt_kernel.edt_row_pass_ref(g2, 256), 3)
-    r, w = g2.shape
-    b_ms, b_by = bound(2 * r * w * 4, 3 * 256 * r * w, torch.float32)
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    hold_edt(edt_kernel, ragged, 32)
+    return hold_edt(edt_kernel, g2, 256, timed=True, path="serve")
 
 
-def fam_counts(mask, c, window):
-    """Bytes (q, k, mask in; out) and operations (a multiply-add for the
-    dot and one for the sum, per channel of each in-frame neighbour of each
-    pixel inside the mask: outside it the output is 0 whatever q and k)."""
+def check_edt_train(edt_kernel):
+    """Kernel A at the inputs make_trimap gives it on the training path:
+    the column pass of the train batch's bg/fg planes ([B*S*2*512, 512]),
+    timed, and of the validation batch's ([B*S*2*544, 960]), captured
+    from preprocess with the plain row pass standing in."""
+    from tcvom_tpu_torch.models.full_model import (TaskConfig, draw_radius,
+                                                   preprocess)
+
+    cfg = TaskConfig(model="vmn_fba", agg_window=WINDOW)
+    for b, s, h, w, seed, path in ((1, 5, 512, 512, 5, "train"),
+                                   (6, 3, 544, 960, 6, "val")):
+        clip = make_clip(b, s, h, w, seed)
+        seen = []
+
+        def record(g2, t):
+            seen.append((g2.clone(), t))
+            return edt_kernel.edt_row_pass_ref(g2, t)
+
+        with mock.patch.object(edt_kernel, "edt_row_pass", record):
+            preprocess(clip["a"], clip["fg"], clip["bg"], cfg,
+                       draw_radius(b, torch.Generator().manual_seed(3)))
+        if len(seen) != 1:
+            fail(f"preprocess at {[b, s, h, w]} ran {len(seen)} row passes")
+        hold_edt(edt_kernel, *seen[0], timed=path == "train", path=path)
+        del clip, seen
+
+
+def fam_counts(mask, c, window, logits=False):
+    """Bytes (q, k, mask in; out, and the logits with ``logits``) and
+    operations (a multiply-add for the dot and one for the sum, per channel
+    of each in-frame neighbour of each pixel inside the mask: outside it
+    the outputs are 0 whatever q and k)."""
     b, h, w, _ = mask.shape
     r = window // 2
     ny = torch.tensor([min(y + r, h - 1) - max(y - r, 0) + 1
@@ -144,7 +195,9 @@ def fam_counts(mask, c, window):
     nx = torch.tensor([min(x + r, w - 1) - max(x - r, 0) + 1
                        for x in range(w)], dtype=torch.float64)
     inside = (mask[..., 0] != 0).double().cpu()
-    nbytes = (3 * b * h * w * c + b * h * w) * mask.element_size()
+    nbytes = (3 * b * h * w * c + b * h * w
+              + (b * h * w * window * window if logits else 0)
+              ) * mask.element_size()
     return nbytes, 4.0 * c * (inside * torch.outer(ny, nx)).sum().item()
 
 
@@ -188,10 +241,195 @@ def check_fam(fam, fam_kernel):
     return results
 
 
+def check_fam_logits(fam, fam_kernel):
+    """The logits-writing kernel (replacing TPU kernels C and D) at the
+    training step's [prev; next] batch (B*(S-2)*2 = 6 at 64x64), the
+    validation step's (12 at 68x120) and a narrow shape in f32 and bf16;
+    then the autograd Function's dq, dk against the plain version's
+    autograd at the training shape, with random d_out and d_logits.
+    Returns the times at the training and validation shapes, by shape."""
+    rng = np.random.RandomState(4)
+    res = {}
+    for shape, window, dtype in (((6, 64, 64, 256), WINDOW, torch.float32),
+                                 ((12, 68, 120, 256), WINDOW, torch.float32),
+                                 ((2, 16, 24, 32), 3, torch.float32),
+                                 ((2, 16, 24, 32), 3, torch.bfloat16)):
+        b, h, w, c = shape
+        q, k = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                for _ in range(2))
+        m = torch.from_numpy((rng.rand(b, h, w, 1) > 0.4).astype(np.float32))
+        q, k, m = (t.to("cuda", dtype) for t in (q, k, m))
+        got = fam_kernel.fam_window_logits(q, k, m, window)
+        torch.cuda.synchronize()
+        want = fam.fam_attention_ref(q, k, m, window)
+        atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (2e-2, 2e-2)
+        errs = []
+        for name, g, wt in zip(("out", "logits"), got, want):
+            err = (g.float() - wt.float()).abs()
+            bad = (err > atol + rtol * wt.float().abs()).sum().item()
+            errs.append(err.max().item())
+            if bad:
+                fail(f"fam_window_logits {shape} {dtype} {name}: "
+                     f"{bad} elements off")
+        emit(phase="check", kernel="fam_window_logits", shape=list(shape),
+             window=window, dtype=str(dtype), atol=atol, rtol=rtol,
+             max_abs_err_out=errs[0], max_abs_err_logits=errs[1])
+        if h < 64:
+            continue
+        ms = time_ms(lambda: fam_kernel.fam_window_logits(q, k, m, window),
+                     20)
+        plain_ms = time_ms(lambda: fam.fam_attention_ref(q, k, m, window), 3)
+        b_ms, b_by = bound(*fam_counts(m, c, window, logits=True), dtype)
+        res[shape] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        emit(phase="time", kernel="fam_window_logits", shape=list(shape),
+             dtype=str(dtype), **res[shape])
+        if b == 6:
+            grads = []
+            d_out, d_lg = (torch.from_numpy(rng.randn(*s).astype(
+                np.float32)).cuda() for s in (q.shape, q.shape[:3]
+                                              + (window * window,)))
+            for f in (fam.FamAttention.apply, fam.fam_attention_ref):
+                q_, k_ = (t.clone().requires_grad_() for t in (q, k))
+                out, lg = f(q_, k_, m, window)
+                grads.append(torch.autograd.grad((out, lg), (q_, k_),
+                                                 (d_out, d_lg)))
+            err = max((g - wt).abs().max().item()
+                      for g, wt in zip(*grads))
+            emit(phase="check", kernel="fam_window_logits", what="dq, dk",
+                 shape=list(shape), atol=1e-5, max_abs_err=err)
+            if err > 1e-5:
+                fail(f"FamAttention gradients off by {err}")
+    return res
+
+
+def make_clip(b: int, s: int, h: int, w: int, seed: int) -> dict:
+    """A synthetic training batch shaped like the dataset's crops, on the
+    card: per sample a soft-edged disc moving across the clip (alpha 0 and
+    255 with a 12-pixel ramp between, so the unknown region is never
+    empty), noise foreground and background; f32, 0..255."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    a = np.zeros((b, s, h, w, 1), np.float32)
+    for i in range(b):
+        cy, cx = rng.uniform(0.35, 0.65, 2) * (h, w)
+        vy, vx = rng.uniform(-8, 8, 2)
+        r = rng.uniform(0.15, 0.3) * min(h, w)
+        for t in range(s):
+            d = np.hypot(yy - cy - vy * t, xx - cx - vx * t)
+            a[i, t, ..., 0] = np.clip((r - d) / 12.0, 0.0, 1.0) * 255.0
+    fg, bg = ((rng.rand(b, s, h, w, 3) * 255).astype(np.float32)
+              for _ in range(2))
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            (("a", a), ("fg", fg), ("bg", bg))}
+
+
+def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
+    """The video trainer at full width and depth: a kernel step against a
+    plain step from the same weights, batch and radius; five more kernel
+    steps (and a profile of two with ``profile_path``); one validation
+    step. Returns the launches of the kernel step."""
+    from tcvom_tpu_torch.models.full_model import TaskConfig, draw_radius
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+
+    cfg = TaskConfig(model="vmn_fba", agg_window=WINDOW)
+    trainer = MattingTrainer(cfg, "vmd", optimizer="adam", lr_strategy="poly",
+                             base_lr=1e-4, weight_decay=1e-4, total_iters=30)
+    batch = make_clip(1, 5, 512, 512, seed=5)
+    radius = draw_radius(1, torch.Generator().manual_seed(3))
+
+    def plain_fam(q, k, mask, window, need_logits=False):
+        out, lg = fam.fam_attention_ref(q, k, mask, window)
+        return out, (lg if need_logits else None)
+
+    def plain_step(state, batch):
+        with mock.patch.object(fam, "fam_attention", plain_fam), \
+                mock.patch.object(edt_kernel, "edt_row_pass",
+                                  edt_kernel.edt_row_pass_ref):
+            _, metrics = trainer.train_step(state, batch, radius)
+        torch.cuda.synchronize()
+        return metrics
+
+    def grads(state):
+        return {n: p.grad.double() for n, p in
+                state.model.named_parameters()}
+
+    plain = trainer.init_state(torch.Generator().manual_seed(0))
+    cuda_build.LAUNCHES.clear()
+    m_plain = plain_step(plain, batch)
+    if sum(cuda_build.LAUNCHES.values()):
+        fail(f"the plain step launched kernels: {dict(cuda_build.LAUNCHES)}")
+    g_plain = grads(plain)
+    del plain
+
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state, m_kern = trainer.train_step(state, batch, radius)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(cuda_build.LAUNCHES)
+    if counts != {"edt_row": 1, "fam_window_logits": 1}:
+        fail(f"train step launch counts {counts}, want one edt_row and one "
+             "fam_window_logits")
+    loss_rel = {k: abs(m_kern[k].item() - m_plain[k].item())
+                / abs(m_plain[k].item()) for k in m_plain if k != "lr"}
+    g_kern = grads(state)
+    # relative L2 error of each gradient within 1e-4
+    rows = [(n, (g_kern[n] - gp).norm().item() / gp.norm().item())
+            for n, gp in g_plain.items()]
+    bad = [r for r in rows if r[1] > 1e-4]
+    worst = sorted(rows, key=lambda r: -r[1])[:5]
+    emit(phase="train_f32", what="kernels vs plain", launches=counts,
+         losses={k: m_kern[k].item() for k in loss_rel},
+         loss_rel_err=loss_rel,
+         grad_rel_err_worst=[list(r) for r in worst],
+         grad_rel_err_median=float(np.median([r[1] for r in rows])),
+         params=len(rows),
+         first_step_ms=first_ms)
+    if max(loss_rel.values()) > 1e-4:
+        fail(f"kernel and plain step losses differ: {loss_rel}")
+    if bad:
+        fail(f"kernel and plain step gradients differ: {bad[:5]}")
+
+    step_ms, losses = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    if not all(np.isfinite(losses)):
+        fail(f"train losses not finite: {losses}")
+    emit(phase="train_f32", what="steps", shape=[1, 5, 512, 512],
+         step_ms=step_ms, losses=losses, lr=metrics["lr"],
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if profile_path:
+        profile_steps(lambda: trainer.train_step(state, batch), 2,
+                      profile_path, "profile_train_f32")
+
+    val = make_clip(6, 3, 544, 960, seed=6)
+    cuda_build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    value, (alpha_c, _, _) = trainer.val_dt_step(state, val)
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t0) * 1e3
+    val_counts = dict(cuda_build.LAUNCHES)
+    emit(phase="val_dt", shape=[6, 3, 544, 960], value=value.item(),
+         launches=val_counts, ms=val_ms)
+    if val_counts != {"edt_row": 1, "fam_window_logits": 1}:
+        fail(f"validation launch counts {val_counts}")
+    if not np.isfinite(value.item()) or alpha_c.shape != (6, 544, 960, 1):
+        fail(f"validation value {value.item()}, alpha {tuple(alpha_c.shape)}")
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
-                    help="profile two bf16 steps; write the table to FILE")
+                    help="profile two bf16 stream steps and two train "
+                         "steps; write the tables to FILE")
     args = ap.parse_args()
 
     # -- 1. device -----------------------------------------------------------
@@ -229,7 +467,6 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     frames = make_frames(12)
     edt_res = check_edt(edt_kernel, distance, frames[0][1])
-    emit(phase="time", kernel="edt_row", **edt_res)
     fam_res = check_fam(fam, fam_kernel)
 
     # -- 4. main path, f32, kernels vs plain -----------------------------------
@@ -298,7 +535,17 @@ def main():
          max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
 
     if args.profile:
-        profile_steps(sp, state, img, tri, args.profile)
+        open(args.profile, "w").close()
+        profile_steps(one_step, 2, args.profile, "profile_bf16")
+    del sp, model, frames, state, f_prev, f_cur, f_next
+    torch.cuda.empty_cache()
+
+    # -- 6. training kernels against their plain versions -----------------------
+    logits_res = check_fam_logits(fam, fam_kernel)
+    check_edt_train(edt_kernel)
+
+    # -- 7. the video trainer, f32, full width and depth -------------------------
+    train_counts = train_phase(fam, edt_kernel, cuda_build, args.profile)
 
     kernels = [
         dict(name="edt_row", route="cuda",
@@ -310,15 +557,22 @@ def main():
              replaces="tcvom_tpu/ops/fam_pallas.py:190",
              launches=counts["fam_window"], library_ms=None,
              **fam_res[torch.bfloat16]),
+        dict(name="fam_window_logits", route="cuda",
+             source="tcvom_tpu_torch/csrc/fam_window.cu",
+             replaces="tcvom_tpu/ops/fam_pallas.py:38, "
+                      "tcvom_tpu/ops/fam_pallas.py:97",
+             launches=train_counts["fam_window_logits"], library_ms=None,
+             **logits_res[(6, 64, 64, 256)]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
 
 
-def profile_steps(sp, state, img, tri, path):
-    """Device time by kernel over two steady bf16 steps, and the device's
-    busy share of the window's wall time."""
+def profile_steps(step, steps: int, path: str, phase: str):
+    """Device time by kernel over ``steps`` calls of ``step``, and the
+    device's busy share of the window's wall time; the table is appended
+    to ``path`` under a ``== phase ==`` line."""
     import os
     from torch.profiler import ProfilerActivity, profile
 
@@ -326,8 +580,8 @@ def profile_steps(sp, state, img, tri, path):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(2):
-            state, _ = sp.step(state, img, tri)
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
@@ -336,12 +590,13 @@ def profile_steps(sp, state, img, tri, path):
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=40)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(table)
+    with open(path, "a") as f:
+        f.write(f"== {phase}, {steps} steps ==\n{table}\n")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    emit(phase="profile_bf16", steps=2, wall_ms=wall_ms, device_ms=device_ms,
+    emit(phase=phase, steps=steps, wall_ms=wall_ms, device_ms=device_ms,
          busy_share=device_ms / wall_ms,
-         top=[[e.key[:80], e.self_device_time_total / 2e3] for e in top])
+         top=[[e.key[:80], e.self_device_time_total / (steps * 1e3)]
+              for e in top])
 
 
 if __name__ == "__main__":

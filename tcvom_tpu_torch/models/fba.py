@@ -12,7 +12,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tcvom_tpu_torch.models.layers import GroupNorm32, WSConv2d
+from tcvom_tpu_torch.models.layers import (GroupNorm32, WSConv2d,
+                                           at_least_f32)
 from tcvom_tpu_torch.ops.image import (adaptive_avg_pool, max_pool,
                                        resize_bilinear)
 
@@ -150,10 +151,10 @@ class FBADecoder(nn.Module):
         h = self.conv_up3(torch.cat([h, conv_out[-5]], dim=1))        # OS=2
         h = resize_bilinear(h, (h.shape[-2] * 2, h.shape[-1] * 2))
         h = torch.cat([h, conv_out[-6][:, :3], img, two_chan_trimap], dim=1)
-        out = self.conv_up4(h).float()                                # OS=1
-        # the fusion solve runs in f32 whatever the network dtype
+        out = at_least_f32(self.conv_up4(h))                   # OS=1
+        # the fusion solve runs in at least f32 whatever the network dtype
         alpha = torch.clamp(out[:, 0:1], 0, 1)
         F_ = torch.sigmoid(out[:, 1:4])
         B = torch.sigmoid(out[:, 4:7])
-        alpha, F_, B = fba_fusion(alpha, img.float(), F_, B)
+        alpha, F_, B = fba_fusion(alpha, at_least_f32(img), F_, B)
         return torch.cat([alpha, F_, B], dim=1)

@@ -1,6 +1,10 @@
-"""Task configuration and eval preprocessing (port of the inference half of
-tcvom_tpu/models/full_model.py). Tensors here are ``[B, H, W, C]`` f32 in
-[0, 255], BGR, as the JAX package takes them."""
+"""Task configuration, preprocessing, trimap synthesis, the loss stacks and
+the training forward drivers (port of tcvom_tpu/models/full_model.py).
+
+Tensors here keep the JAX package's layout: ``[B, H, W, C]`` (eval) or
+``[B, S, H, W, C]`` (clips), f32 in [0, 255], BGR. The model itself is
+NCHW; :func:`_run_vmn` converts at its boundary.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -9,11 +13,14 @@ import torch
 import torch.nn.functional as F
 
 from tcvom_tpu_torch.models import registry
+from tcvom_tpu_torch.ops import losses as L
 from tcvom_tpu_torch.ops.distance import trimap_transform
+from tcvom_tpu_torch.ops.image import avg_pool, dilate_by_radius, unfold
 
 IMG_SCALE = 1.0 / 255.0
 IMG_MEAN = (0.485, 0.456, 0.406)
 IMG_STD = (0.229, 0.224, 0.225)
+MAX_RADIUS = 25                    # random trimap dilation radius 0..25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,7 +28,12 @@ class TaskConfig:
     model: str                         # e.g. 'vmn_fba'
     agg_window: int = 7
     agg_reduction: int = 1
-    dilate_radius: int | None = None   # fixed trimap dilation (not ported)
+    freeze_backbone: bool = False
+    dilate_radius: int | None = None   # fixed trimap dilation; None = random
+    eps: float = 0.0                   # alpha snapping for pretrain (1e-2)
+    att_thres: float = 0.3
+    label_smooth: float = 0.2
+    fba_loss_normalize: bool = True
 
     @property
     def method(self) -> str:
@@ -36,6 +48,13 @@ class TaskConfig:
         return self.model.startswith("vmn")
 
 
+def _normalize(scaled_imgs: torch.Tensor) -> torch.Tensor:
+    mean = torch.tensor(IMG_MEAN, dtype=torch.float32,
+                        device=scaled_imgs.device)
+    std = torch.tensor(IMG_STD, dtype=torch.float32, device=scaled_imgs.device)
+    return (scaled_imgs - mean) / std
+
+
 def preprocess_eval(img: torch.Tensor, tri: torch.Tensor,
                     cfg: TaskConfig) -> dict:
     """EvalModel preprocessing from real trimaps (reference
@@ -45,16 +64,12 @@ def preprocess_eval(img: torch.Tensor, tri: torch.Tensor,
     The scale is a multiply by the f32 constant 1/255 (not a divide), so
     that tri = 255 maps to exactly 1.0, as in the JAX package; the 8-channel
     FBA encoding then takes fg/bg by exact equality."""
-    if cfg.dilate_radius is not None:
-        raise NotImplementedError(
-            "static-radius dilate_by_radius is not ported yet: ROADMAP.md "
-            "Queue 1 item 2")
     scaled_imgs = img.flip(-1) * IMG_SCALE
-    mean = torch.tensor(IMG_MEAN, dtype=torch.float32, device=img.device)
-    std = torch.tensor(IMG_STD, dtype=torch.float32, device=img.device)
-    imgs = (scaled_imgs - mean) / std
+    imgs = _normalize(scaled_imgs)
     scaled_tris = tri * IMG_SCALE
     trimask = ((scaled_tris > 0) & (scaled_tris < 1)).float()
+    if cfg.dilate_radius is not None:
+        trimask = dilate_by_radius(trimask, int(cfg.dilate_radius))
     tc = cfg.trimap_channels
     if tc == 1:
         tris = scaled_tris
@@ -68,3 +83,226 @@ def preprocess_eval(img: torch.Tensor, tri: torch.Tensor,
         tris = torch.cat([trimap_transform(tri2), tri2], dim=-1)
     return dict(scaled_imgs=scaled_imgs, tris=tris, trimasks=trimask,
                 imgs=imgs)
+
+
+# ---------------------------------------------------------------------------
+# Training preprocessing (reference models/model.py:54-92)
+# ---------------------------------------------------------------------------
+
+def draw_radius(batch: int, generator: torch.Generator | None = None
+                ) -> torch.Tensor:
+    """Per-sample random trimap dilation radius in [0, MAX_RADIUS]."""
+    return torch.randint(0, MAX_RADIUS + 1, (batch,), generator=generator)
+
+
+def make_trimap(alpha: torch.Tensor, cfg: TaskConfig,
+                radius: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """alpha: ``[B, S, H, W, 1]`` in [0, 1]. Returns (trimap encoding
+    ``[B, S, H, W, trimap_channels]``, trimask ``[B, S, H, W, 1]``, the
+    dilated unknown region). ``radius``: the per-sample dilation ``[B]``
+    (see :func:`draw_radius`); unused when ``cfg.dilate_radius`` is set."""
+    if cfg.eps > 0:
+        alpha = torch.where(alpha < cfg.eps, 0.0, alpha)
+        alpha = torch.where(alpha > 1 - cfg.eps, 1.0, alpha)
+    trimask = ((alpha > 0) & (alpha < 1.0)).to(alpha.dtype)
+    if cfg.dilate_radius is None:
+        if radius is None:
+            raise ValueError("a random-width trimap needs the per-sample "
+                             "radius (draw_radius)")
+        trimap = dilate_by_radius(trimask, radius, max_radius=MAX_RADIUS)
+    else:
+        trimap = dilate_by_radius(trimask, int(cfg.dilate_radius))
+
+    tc = cfg.trimap_channels
+    if tc == 1:
+        return torch.where(trimap > 0.5, 128.0 * IMG_SCALE, alpha), trimap
+    if tc == 3:
+        tri1 = torch.where(trimap > 0.5, 1.0, 2.0 * alpha).long()
+        return F.one_hot(tri1[..., 0], 3).to(alpha.dtype), trimap
+    tri1 = torch.where(trimap > 0.5, 255.0, alpha)
+    t2f = (tri1 == 1.0).to(alpha.dtype)
+    t2b = (tri1 == 0.0).to(alpha.dtype)
+    tri2 = torch.cat([t2b, t2f], dim=-1)
+    return torch.cat([trimap_transform(tri2), tri2], dim=-1), trimap
+
+
+@torch.no_grad()
+def preprocess(a, fg, bg, cfg: TaskConfig, radius=None) -> dict:
+    """Compose, normalize and synthesize trimaps (models/model.py:82-92),
+    without gradient, as the reference's ``torch.no_grad()`` block."""
+    scaled_gts = a * IMG_SCALE
+    scaled_fgs = fg.flip(-1) * IMG_SCALE          # BGR -> RGB
+    scaled_bgs = bg.flip(-1) * IMG_SCALE
+    scaled_imgs = scaled_fgs * scaled_gts + scaled_bgs * (1.0 - scaled_gts)
+    tris, trimasks = make_trimap(scaled_gts, cfg, radius)
+    return dict(scaled_imgs=scaled_imgs, scaled_fgs=scaled_fgs,
+                scaled_bgs=scaled_bgs, scaled_gts=scaled_gts, tris=tris,
+                trimasks=trimasks, imgs=_normalize(scaled_imgs))
+
+
+# ---------------------------------------------------------------------------
+# Losses (reference models/model.py:129-197, 286-345)
+# ---------------------------------------------------------------------------
+
+def fba_single_image_losses(cfg: TaskConfig, preds, pre, start: int,
+                            end: int):
+    """FBA composite losses (models/model.py:129-197): preds
+    ``[B, S, H, W, 7]``. Returns (L_alpha_comp, L_lap, L_grad, alphas,
+    comps, Fs, Bs), the last four ``[B, S, H, W, .]`` with the frames
+    outside [start, end) zero."""
+    gts, fgs, bgs, imgs = (pre["scaled_gts"], pre["scaled_fgs"],
+                           pre["scaled_bgs"], pre["scaled_imgs"])
+    tm = pre["trimasks"]
+    nrm = cfg.fba_loss_normalize
+    s = preds.shape[1]
+    alpha_p, f_p, b_p = preds[..., 0:1], preds[..., 1:4], preds[..., 4:7]
+    l_ac, l_lap, l_grad = [], [], []
+    alphas, comps, fs, bs = [None] * s, [None] * s, [None] * s, [None] * s
+    for c in range(start, end):
+        mask = tm[:, c] > 0.5
+        refine = torch.where(mask, alpha_p[:, c], gts[:, c])
+        cf = torch.where(mask, f_p[:, c], fgs[:, c])
+        cb = torch.where(mask, b_p[:, c], bgs[:, c])
+        alphas[c] = refine
+        comps[c] = cf * refine + cb * (1.0 - refine)
+        fs[c], bs[c] = cf, cb
+
+        l_a1 = L.l1_mask(refine, gts[:, c], normalize=nrm)
+        ac = cf * gts[:, c] + cb * (1.0 - gts[:, c])
+        l_acomp = L.l1_mask(ac, imgs[:, c], normalize=nrm)
+        fbc = fgs[:, c] * refine + bgs[:, c] * (1.0 - refine)
+        l_fbc = L.l1_mask(fbc, imgs[:, c], normalize=nrm)
+        l_fb1 = (L.l1_mask(cf, fgs[:, c], normalize=nrm)
+                 + L.l1_mask(cb, bgs[:, c], normalize=nrm))
+        l_ac.append(l_a1 + l_acomp + 0.25 * (l_fbc + l_fb1))
+
+        l_ag = L.l1_grad(refine, gts[:, c], normalize=nrm)
+        l_excl = L.exclusion_loss(cf, cb, level=3, normalize=nrm)
+        l_grad.append(l_ag + 0.25 * l_excl)
+
+        l_alap = L.lap_loss(refine, gts[:, c], normalize=nrm)
+        l_flap = L.lap_loss(cf, fgs[:, c], normalize=nrm)
+        l_blap = L.lap_loss(cb, bgs[:, c], normalize=nrm)
+        l_lap.append(l_alap + 0.25 * (l_flap + l_blap))
+    for i in range(s):
+        if alphas[i] is None:
+            alphas[i] = torch.zeros_like(alphas[start])
+            comps[i] = torch.zeros_like(comps[start])
+            fs[i] = torch.zeros_like(fs[start])
+            bs[i] = torch.zeros_like(bs[start])
+    return (sum(l_ac) / len(l_ac), sum(l_lap) / len(l_lap),
+            sum(l_grad) / len(l_grad), torch.stack(alphas, 1),
+            torch.stack(comps, 1), torch.stack(fs, 1), torch.stack(bs, 1))
+
+
+def attention_loss(cfg: TaskConfig, attb, attf, small_mask, scaled_gts,
+                   tam_os: int = 8):
+    """L_att: BCE supervision of the FAM logits (models/model.py:286-321).
+    attb/attf: ``[B, S-2, h, w, window^2]`` raw logits; small_mask
+    ``[B, S-2, h, w, 1]``; scaled_gts ``[B, S, H, W, 1]``."""
+    s = scaled_gts.shape[1]
+    win = cfg.agg_window
+    eps_smooth = 1.0 - cfg.label_smooth
+    terms = []
+    for c in range(1, s - 1):
+        j = c - 1
+        cgt = avg_pool(scaled_gts[:, c], tam_os, tam_os)
+        m = small_mask[:, j]                                  # [B, h, w, 1]
+        cnt = m.sum()
+
+        def bce_term(logits, neighbor_gt):
+            # labels over the window, zero-padded like F.unfold
+            ngt = unfold(avg_pool(neighbor_gt, tam_os, tam_os), win)[..., 0]
+            lbl = ((cgt - ngt).abs() < cfg.att_thres).to(logits.dtype) \
+                * eps_smooth
+            bce = (torch.clamp_min(logits, 0) - logits * lbl
+                   + torch.log1p(torch.exp(-logits.abs())))
+            return (bce * m).sum() / torch.clamp_min(cnt * win * win, 1.0)
+
+        loss = 0.5 * (bce_term(attb[:, j], scaled_gts[:, c - 1])
+                      + bce_term(attf[:, j], scaled_gts[:, c + 1]))
+        terms.append(torch.where(cnt > 0, loss, 0.0))
+    return sum(terms) / len(terms)
+
+
+def temporal_loss(cfg: TaskConfig, alphas, gts, trimasks, fs=None, bs=None,
+                  scaled_fgs=None, scaled_bgs=None):
+    """L_dt temporal coherence for S >= 5 (models/model.py:326-345)."""
+    s = alphas.shape[1]
+
+    def dt(pred, gt, normalize=True):
+        terms = [L.l1_mask(pred[:, c] - pred[:, c + 1],
+                           gt[:, c] - gt[:, c + 1], trimasks[:, c],
+                           normalize=normalize) for c in range(1, s - 2)]
+        return sum(terms) / len(terms)
+
+    if s < 5:
+        return alphas.new_zeros(())
+    if cfg.method == "fba":
+        nrm = cfg.fba_loss_normalize
+        return dt(alphas, gts, nrm) + 0.25 * (dt(fs, scaled_fgs, nrm)
+                                              + dt(bs, scaled_bgs, nrm))
+    return dt(alphas, gts)
+
+
+# ---------------------------------------------------------------------------
+# Forward drivers
+# ---------------------------------------------------------------------------
+
+def _cf(t: torch.Tensor) -> torch.Tensor:
+    """``[B, S, H, W, C]`` -> ``[B, S, C, H, W]``."""
+    return t.permute(0, 1, 4, 2, 3)
+
+
+def _cl(t: torch.Tensor) -> torch.Tensor:
+    """``[B, S, C, H, W]`` -> ``[B, S, H, W, C]``."""
+    return t.permute(0, 1, 3, 4, 2)
+
+
+def _run_vmn(model, pre, cfg: TaskConfig):
+    """The full-clip VMN on the preprocessed clip; channels-last results
+    (preds, attb, attf, small_mask)."""
+    if cfg.method != "fba":
+        raise NotImplementedError(
+            f"{cfg.model!r} is not ported yet: ROADMAP.md Queue 1 item 10")
+    inputs = torch.cat([pre["imgs"], pre["tris"]], dim=-1)
+    extras = (_cf(pre["scaled_imgs"]), _cf(pre["tris"][..., -2:]))
+    preds, attb, attf, small = model(_cf(inputs), _cf(pre["trimasks"]),
+                                     extras)
+    return _cl(preds), attb, attf, _cl(small)
+
+
+def forward_single(model, batch: dict, cfg: TaskConfig, radius=None):
+    """FullModel forward (models/model.py:199-246), VMN branch: the
+    TAM-pretrain configuration (pretrain_ddp.py) runs the temporal module
+    over all frames and supervises frames 1..S-2 without the video-only
+    L_att and L_dt. Returns (losses, aux)."""
+    if not cfg.is_vmn:
+        raise NotImplementedError(
+            "single-frame backbones are not ported yet: ROADMAP.md Queue 1 "
+            "items 10-11")
+    s = batch["a"].shape[1]
+    pre = preprocess(batch["a"], batch["fg"], batch["bg"], cfg, radius)
+    preds, _, _, _ = _run_vmn(model, pre, cfg)
+    l1, l2, l3, alphas, comps, fs, bs = fba_single_image_losses(
+        cfg, preds, pre, 1, s - 1)
+    return ({"L1": l1, "L2": l2, "L3": l3},
+            dict(pre=pre, alphas=alphas, comps=comps, Fs=fs, Bs=bs))
+
+
+def forward_vmd(model, batch: dict, cfg: TaskConfig, radius=None):
+    """FullModel_VMD forward, the full video loss stack
+    (models/model.py:258-357). ``batch``: a, fg, bg ``[B, S, H, W, .]``
+    in [0, 255] on the model's device; ``radius``: see :func:`make_trimap`.
+    Returns (losses {L1, L2, L3, L_dt, L_att}, aux)."""
+    s = batch["a"].shape[1]
+    pre = preprocess(batch["a"], batch["fg"], batch["bg"], cfg, radius)
+    preds, attb, attf, small_mask = _run_vmn(model, pre, cfg)
+    l1, l2, l3, alphas, comps, fs, bs = fba_single_image_losses(
+        cfg, preds, pre, 1, s - 1)
+    l_att = attention_loss(cfg, attb, attf, small_mask, pre["scaled_gts"])
+    l_dt = temporal_loss(cfg, alphas, pre["scaled_gts"], pre["trimasks"],
+                         fs, bs, pre["scaled_fgs"], pre["scaled_bgs"])
+    losses = {"L1": l1, "L2": l2, "L3": l3, "L_dt": l_dt, "L_att": l_att}
+    return losses, dict(pre=pre, alphas=alphas, comps=comps, Fs=fs, Bs=bs)

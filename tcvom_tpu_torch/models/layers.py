@@ -7,12 +7,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or in f64 when it is f64: the f32 islands of a bf16
+    network stay f32, and an f64 network stays f64 throughout."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def ws_standardize(weight: torch.Tensor) -> torch.Tensor:
     """Weight standardization (reference models/FBA/layers_WS.py:13-23):
     subtract the per-output-channel mean and divide by the unbiased std
-    (+1e-12 inside the sqrt, +1e-5 outside). Computed in f32 and cast back
-    to the weight's dtype."""
-    w32 = weight.float()
+    (+1e-12 inside the sqrt, +1e-5 outside). Computed in at least f32 and
+    cast back to the weight's dtype."""
+    w32 = at_least_f32(weight)
     w = w32 - w32.mean(dim=(1, 2, 3), keepdim=True)
     var = w.reshape(w.shape[0], -1).var(dim=1, unbiased=True)
     std = torch.sqrt(var + 1e-12) + 1e-5

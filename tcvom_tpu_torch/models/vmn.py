@@ -3,6 +3,10 @@ tcvom_tpu/models/vmn.py), NCHW.
 
 As in the reference, the FAM lives inside the decoder
 (``decoder.fam.{key,query,value}_conv``).
+
+``freeze_backbone`` reproduces the reference semantics (VMN_model.py:77-81,
+100-104): the encoder and the extract half of the decoder run without
+gradient (and the trainer keeps their parameters out of the optimizer).
 """
 from __future__ import annotations
 
@@ -49,6 +53,13 @@ class FeatureAggregationModule(nn.Module):
         attb, attf = (None, None) if att2 is None else (att2[:n], att2[n:])
         return v + x2[:n] + x2[n:], attb, attf, small
 
+    def forward(self, x, b, f, mask):
+        """Center ``x``, previous ``b`` and next ``f`` features, NCHW: the
+        projections and :meth:`aggregate`, with the logits."""
+        return self.aggregate(self.query_conv(x), self.value_conv(x),
+                              self.key_conv(b), self.key_conv(f), mask,
+                              need_logits=True)
+
 
 class VMN(nn.Module):
     """Temporal wrapper: per-frame encode + extract, FAM over the window,
@@ -56,12 +67,13 @@ class VMN(nn.Module):
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
                  fam_channels: int, agg_window: int = 7,
-                 agg_reduction: int = 1):
+                 agg_reduction: int = 1, freeze_backbone: bool = False):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
         self.decoder.fam = FeatureAggregationModule(
             fam_channels, agg_reduction, agg_window)
+        self.freeze_backbone = freeze_backbone
 
     @property
     def fam(self) -> FeatureAggregationModule:
@@ -82,3 +94,40 @@ class VMN(nn.Module):
             qkv_c["q"], qkv_c["v"], k_b, k_f, mask, need_logits=need_logits)
         pred = self.decoder(enc_c, mode="head", x=agg)
         return pred, attb, attf, small
+
+    def forward(self, images, masks, extras):
+        """Full clip. ``images``: ``[B, S, Cin, H, W]``; ``masks``: unknown
+        region ``[B, S, 1, H, W]``; ``extras``: tuple of ``[B, S, ., H, W]``
+        (FBA's raw image and 2-channel trimap) for the decoder head.
+
+        Frames fold into the batch: the per-frame half runs once on B*S
+        frames and the decode half once on the B*(S-2) centers, each with
+        its previous and next frame. Returns (preds ``[B, S, Cout, H, W]``
+        with the endpoint frames zero, attb and attf logits
+        ``[B, S-2, h, w, window^2]``, small_mask ``[B, S-2, 1, h, w]``)."""
+        b, s = images.shape[:2]
+
+        def fold(t):
+            return t.reshape((-1,) + t.shape[2:])
+
+        def unfold(t, frames):
+            return t.reshape((b, frames) + t.shape[1:])
+
+        def centers(t):
+            return fold(unfold(t, s)[:, 1:s - 1])
+
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_backbone):
+            enc = dict(self.encoder(fold(images)),
+                       extras=tuple(fold(t) for t in extras))
+            feat = self.decoder(enc, mode="extract")
+        feat = unfold(feat, s)
+        agg, attb, attf, small = self.fam(
+            fold(feat[:, 1:s - 1]), fold(feat[:, 0:s - 2]),
+            fold(feat[:, 2:s]), fold(masks[:, 1:s - 1]))
+        enc_mid = {"conv_out": tuple(centers(t) for t in enc["conv_out"]),
+                   "extras": tuple(centers(t) for t in enc["extras"])}
+        pred = unfold(self.decoder(enc_mid, mode="head", x=agg), s - 2)
+        zero = torch.zeros_like(pred[:, :1])
+        return (torch.cat([zero, pred, zero], dim=1), unfold(attb, s - 2),
+                unfold(attf, s - 2), unfold(small, s - 2))

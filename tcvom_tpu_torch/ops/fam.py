@@ -30,12 +30,13 @@ def fam_attention_ref(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
     """Plain dense masked attention. q, k: ``[B, H, W, C]``; mask:
     ``[B, H, W, 1]`` in {0, 1}. Returns ``(out [B, H, W, C], logits
     [B, H, W, window^2])``, both zeroed outside the mask and in q's dtype.
-    Computed in f32 whatever the input dtype, as the kernel accumulates."""
+    Computed in f32 (f64 for f64 inputs), as the kernel accumulates."""
     b, h, w, c = q.shape
     r = window // 2
     scale = 1.0 / math.sqrt(c)
-    qf, m = q.float(), mask.float()
-    kp = F.pad(k.float(), (0, 0, r, r, r, r))
+    wide = torch.promote_types(q.dtype, torch.float32)
+    qf, m = q.to(wide), mask.to(wide)
+    kp = F.pad(k.to(wide), (0, 0, r, r, r, r))
     shifted = [kp[:, r + dy:r + dy + h, r + dx:r + dx + w]
                for dy, dx in _shifts(window)]
     logits = torch.stack([(qf * ks).sum(-1) * scale for ks in shifted], -1)
@@ -46,17 +47,49 @@ def fam_attention_ref(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
     return (out * m).to(q.dtype), (logits * m).to(q.dtype)
 
 
+class FamAttention(torch.autograd.Function):
+    """Differentiable FAM with both outputs: the forward is ``forward`` (by
+    default the logits-writing CUDA kernel,
+    :func:`~tcvom_tpu_torch.ops.fam_kernel.fam_window_logits`); the
+    backward is the VJP of :func:`fam_attention_ref`, recomputed, with both
+    cotangents (d_out, d_logits), as the JAX package's ``custom_vjp`` does
+    (tcvom_tpu/ops/fam_pallas.py::_bwd). The mask gets no gradient.
+
+    ``FamAttention.apply(q, k, mask, window[, forward])``; a test passes
+    ``forward=fam_attention_ref`` to run the backward without a card."""
+
+    @staticmethod
+    def forward(ctx, q, k, mask, window, forward=None):
+        fwd = forward or fam_kernel.fam_window_logits
+        out, logits = fwd(q, k, mask, window)
+        ctx.save_for_backward(q, k, mask)
+        ctx.window = window
+        return out, logits
+
+    @staticmethod
+    def backward(ctx, d_out, d_logits):
+        q, k, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            q_, k_ = q.detach().requires_grad_(), k.detach().requires_grad_()
+            out, logits = fam_attention_ref(q_, k_, mask, ctx.window)
+            dq, dk = torch.autograd.grad((out, logits), (q_, k_),
+                                         (d_out, d_logits))
+        return dq, dk, None, None, None
+
+
 def fam_attention(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
                   window: int, need_logits: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Dispatch: the plain version for CPU tensors, the CUDA kernel
-    (``csrc/fam_window.cu``) for CUDA tensors. Returns ``(out, logits)``;
-    logits is None unless ``need_logits``."""
+    """Dispatch: the plain version for CPU tensors; on the card the
+    logits-writing kernel through :class:`FamAttention` when the logits are
+    needed or a gradient must flow to q or k, else the inference kernel
+    (``csrc/fam_window.cu`` for both). Returns ``(out, logits)``; logits is
+    None unless ``need_logits``."""
     if q.device.type == "cpu":
         out, logits = fam_attention_ref(q, k, mask, window)
         return out, (logits if need_logits else None)
-    if need_logits:
-        raise NotImplementedError(
-            "the logits-writing FAM kernels (training) are not ported yet: "
-            "ROADMAP.md Queue 2 items 3-4")
+    if need_logits or (torch.is_grad_enabled()
+                       and (q.requires_grad or k.requires_grad)):
+        out, logits = FamAttention.apply(q, k, mask, window)
+        return out, (logits if need_logits else None)
     return fam_kernel.fam_window(q, k, mask, window), None

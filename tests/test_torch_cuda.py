@@ -68,10 +68,43 @@ def test_fam_kernel_matches_plain(dev, rng, shape, window, dtype):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-def test_fam_need_logits_not_ported_on_card(dev, rng):
-    q, k, m = _fam_inputs(rng, (1, 4, 4, 8), torch.float32, dev)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        fam.fam_attention(q, k, m, 3, need_logits=True)
+@pytest.mark.parametrize("shape,window", [
+    ((2, 8, 16, 8), 3), ((1, 16, 24, 32), 7), ((2, 16, 24, 256), 7),
+    ((1, 5, 7, 300), 5), ((1, 3, 4, 1), 9), ((6, 64, 64, 256), 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fam_logits_kernel_matches_plain(dev, rng, shape, window, dtype):
+    q, k, m = _fam_inputs(rng, shape, dtype, dev)
+    m[0] = 0                          # a fully masked frame
+    got, lg = fam.fam_attention(q, k, m, window, need_logits=True)
+    torch.cuda.synchronize()
+    want, want_lg = fam.fam_attention_ref(q, k, m, window)
+    assert got.dtype == lg.dtype == dtype
+    assert lg.shape == shape[:3] + (window * window,)
+    assert not lg[0].any() and not got[0].any()
+    tol = (dict(atol=1e-5, rtol=0) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(lg.float(), want_lg.float(), **tol)
+
+
+@pytest.mark.parametrize("need_logits", [True, False])
+def test_fam_gradients_match_plain(dev, rng, need_logits):
+    """The autograd Function (kernel forward, plain VJP backward) against
+    the plain version's autograd, with both cotangents; a CUDA call under
+    autograd never drops the gradient, logits or not."""
+    q, k, m = _fam_inputs(rng, (2, 12, 20, 64), torch.float32, dev)
+    d_out = torch.randn(q.shape, device=dev)
+    d_lg = torch.randn(q.shape[:3] + (25,), device=dev)
+    grads = []
+    for f in (fam.fam_attention, lambda *a, **kw: fam.fam_attention_ref(*a)):
+        q_, k_ = q.clone().requires_grad_(), k.clone().requires_grad_()
+        out, lg = f(q_, k_, m, 5, need_logits=need_logits)
+        loss = (out * d_out).sum()
+        if need_logits:
+            loss = loss + (lg * d_lg).sum()
+        grads.append(torch.autograd.grad(loss, (q_, k_)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev, rng):
@@ -83,6 +116,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, rng):
     with pytest.raises(ValueError):
         fam_kernel.fam_window(q, k, m, 4)                      # even window
     with pytest.raises(ValueError):
+        fam_kernel.fam_window_logits(q, k, m[..., 0], 3)       # mask shape
+    with pytest.raises(ValueError):
         edt_kernel.edt_row_pass(q[0, :, :, 0], 2)              # stride
     with pytest.raises(ValueError):
         edt_kernel.edt_row_pass(torch.zeros(4, 4, device=dev), 10 ** 5)
@@ -92,9 +127,12 @@ def test_launch_counts(dev, rng):
     q, k, m = _fam_inputs(rng, (1, 4, 6, 8), torch.float32, dev)
     cuda_build.LAUNCHES.clear()
     fam.fam_attention(q, k, m, 3)
+    fam.fam_attention(q, k, m, 3, need_logits=True)
+    fam.fam_attention(q.requires_grad_(), k, m, 3)
     edt_kernel.edt_row_pass(torch.zeros(4, 8, device=dev), 2)
     edt_kernel.edt_row_pass_ref(torch.zeros(4, 8, device=dev), 2)
-    assert cuda_build.LAUNCHES == {"fam_window": 1, "edt_row": 1}
+    assert cuda_build.LAUNCHES == {"fam_window": 1, "fam_window_logits": 2,
+                                   "edt_row": 1}
 
 
 def test_stream_on_card_matches_cpu(dev, rng):

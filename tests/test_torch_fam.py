@@ -1,5 +1,8 @@
-"""The port's FAM attention (plain version and dispatcher) against the JAX
-formulation and the JAX package's Pallas kernel in interpret mode."""
+"""The port's FAM attention (plain version, dispatcher and autograd
+Function) against the JAX formulation and the JAX package's Pallas kernels
+in interpret mode."""
+import unittest.mock as mock
+
 import numpy as np
 import pytest
 
@@ -70,7 +73,82 @@ def test_fam_dispatch_cpu_takes_plain_version(rng):
     assert torch.equal(out, want_out) and torch.equal(lg, want_lg)
 
 
-def test_fam_window_rejects_cpu_tensor():
+@pytest.mark.parametrize("wrapper", ["fam_window", "fam_window_logits"])
+def test_fam_window_rejects_cpu_tensor(wrapper):
     q = torch.zeros(1, 4, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        fam_kernel.fam_window(q, q, q[..., :1].contiguous(), 3)
+        getattr(fam_kernel, wrapper)(q, q, q[..., :1].contiguous(), 3)
+
+
+@pytest.mark.parametrize("mxu", [False, True], ids=["C_fam_kernel",
+                                                    "D_fam_kernel_mxu"])
+@pytest.mark.parametrize("window", [3, 7])
+def test_fam_logits_match_pallas_training_kernels(rng, mxu, window):
+    """Out and logits of the plain version (the logits kernel's oracle)
+    against the two logits-writing Pallas kernels the CUDA kernel
+    replaces: _fam_kernel (C) and _fam_kernel_mxu (D)."""
+    q, k, mask = _inputs(rng, (2, 16, 24, 128))
+    want_out, want_lg = _fam_pallas_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(mask), window,
+        interpret=True, mxu=mxu, need_logits=True)
+    got_out, got_lg = TF.fam_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(mask),
+        window, need_logits=True)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
+                               atol=1e-5)
+    np.testing.assert_allclose(got_lg.numpy(), np.asarray(want_lg),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("through", ["plain", "function"])
+def test_fam_vjp_matches_jax(rng, through):
+    """dq, dk with both cotangents (d_out, d_logits) against jax.vjp of
+    the JAX formulation, through the plain version's autograd and through
+    the autograd Function run with the plain forward."""
+    window = 5
+    q, k, mask = _inputs(rng, (2, 8, 12, 16))
+    d_out = rng.randn(*q.shape).astype(np.float32)
+    d_lg = rng.randn(*q.shape[:3], window * window).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: fam_xla(a, b, jnp.asarray(mask), window),
+                     jnp.asarray(q), jnp.asarray(k))
+    want = vjp((jnp.asarray(d_out), jnp.asarray(d_lg)))
+    qt = torch.from_numpy(q).requires_grad_()
+    kt = torch.from_numpy(k).requires_grad_()
+    if through == "plain":
+        out, lg = TF.fam_attention_ref(qt, kt, torch.from_numpy(mask),
+                                       window)
+    else:
+        out, lg = TF.FamAttention.apply(qt, kt, torch.from_numpy(mask),
+                                        window, TF.fam_attention_ref)
+    got = torch.autograd.grad(
+        (out, lg), (qt, kt), (torch.from_numpy(d_out), torch.from_numpy(d_lg)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+
+
+@pytest.mark.parametrize("need_logits", [False, True])
+def test_fam_dispatch_off_cpu_keeps_the_gradient(need_logits):
+    """Off the CPU, a call under autograd goes through the Function (the
+    logits kernel forward, the plain VJP backward), never the inference
+    kernel, whose output has no grad_fn. Meta tensors stand in for the
+    card, with the plain version in place of the kernel."""
+    q, k = (torch.randn(1, 4, 6, 8, device="meta", requires_grad=True)
+            for _ in range(2))
+    m = torch.ones(1, 4, 6, 1, device="meta")
+    launched = []
+
+    def logits_kernel(*args):
+        launched.append("fam_window_logits")
+        return TF.fam_attention_ref(*args)
+
+    def inference_kernel(*args):
+        raise AssertionError("the inference kernel drops the gradient")
+
+    with mock.patch.object(fam_kernel, "fam_window_logits", logits_kernel), \
+            mock.patch.object(fam_kernel, "fam_window", inference_kernel):
+        out, lg = TF.fam_attention(q, k, m, 3, need_logits=need_logits)
+        dq, dk = torch.autograd.grad(out.sum(), (q, k))
+    assert launched == ["fam_window_logits"]
+    assert type(out.grad_fn).__name__ == "FamAttentionBackward"
+    assert (lg is not None) == need_logits
+    assert dq.shape == q.shape and dk.shape == k.shape

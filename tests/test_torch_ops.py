@@ -53,6 +53,50 @@ def test_image_ops_match_jax(rng, op, args):
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
+@pytest.mark.parametrize("op,args", [
+    ("avg_pool", (2, 2)), ("avg_pool", (8, 8)), ("avg_pool", (3, 1, 1)),
+    ("unfold", (3,)), ("unfold", (7,)),
+    ("image_gradient", ())])
+def test_channels_last_ops_match_jax(rng, op, args):
+    """The training stack's ops, channels-last with two leading dims."""
+    x = rng.rand(2, 3, 16, 24, 2).astype(np.float32)
+    want = getattr(JI, op)(jnp.asarray(x), *args)
+    got = getattr(TI, op)(torch.from_numpy(x), *args)
+    for g, w in zip(*((got, want) if op == "image_gradient"
+                      else ((got,), (want,)))):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)
+
+
+def _trimask(rng, shape):
+    m = np.zeros(shape, np.float32)
+    m[..., 20:30, 10:18, :] = 1.0
+    m[rng.rand(*shape) < 0.003] = 1.0
+    return m
+
+
+@pytest.mark.parametrize("radius", [0, 1, 6, 25])
+def test_dilate_static_radius_matches_jax(rng, radius):
+    m = _trimask(rng, (2, 48, 40, 1))
+    want = np.asarray(JI.dilate_by_radius(jnp.asarray(m), radius))
+    got = TI.dilate_by_radius(torch.from_numpy(m), radius).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dilate_per_sample_radius_matches_jax(rng):
+    m = _trimask(rng, (4, 2, 48, 40, 1))
+    radius = np.array([0, 1, 13, 25], np.int32)
+    want = np.asarray(JI.dilate_by_radius(jnp.asarray(m), jnp.asarray(radius),
+                                          max_radius=25))
+    got = TI.dilate_by_radius(torch.from_numpy(m),
+                              torch.from_numpy(radius)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # the per-sample iterate equals the static two-pass form
+    for i, r in enumerate(radius):
+        np.testing.assert_array_equal(
+            got[i], TI.dilate_by_radius(torch.from_numpy(m[i]), int(r)))
+
+
 @pytest.mark.parametrize("shape", [(3, 3, 11, 64), (1, 1, 256, 32)])
 def test_ws_standardize_matches_jax(rng, shape):
     w = rng.randn(*shape).astype(np.float32) * 0.1 + 0.02
@@ -112,16 +156,20 @@ def test_trimap_transform_matches_jax(rng):
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-@pytest.mark.parametrize("model", ["vmn_fba", "vmn_dim", "vmn_gca"])
-def test_preprocess_eval_matches_jax(rng, model):
+@pytest.mark.parametrize("model,dilate", [
+    ("vmn_fba", None), ("vmn_dim", None), ("vmn_gca", None),
+    ("vmn_fba", 5), ("vmn_gca", 3)])
+def test_preprocess_eval_matches_jax(rng, model, dilate):
     img = rng.randint(0, 256, (2, 48, 40, 3)).astype(np.float32)
     tri = np.zeros((2, 48, 40, 1), np.float32)
     tri[:, 10:40, 5:35] = 128.0
     tri[:, 20:30, 15:25] = 255.0
     want = JFM.preprocess_eval(jnp.asarray(img), jnp.asarray(tri),
-                               JFM.TaskConfig(model=model))
+                               JFM.TaskConfig(model=model,
+                                              dilate_radius=dilate))
     got = TFM.preprocess_eval(torch.from_numpy(img), torch.from_numpy(tri),
-                              TFM.TaskConfig(model=model))
+                              TFM.TaskConfig(model=model,
+                                             dilate_radius=dilate))
     for key in ("scaled_imgs", "imgs", "trimasks", "tris"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    atol=1e-6, err_msg=key)
