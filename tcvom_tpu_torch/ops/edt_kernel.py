@@ -15,8 +15,20 @@ import torch
 from tcvom_tpu_torch.ops import cuda_build
 
 _BIG = 1.0e7
-_SEG = 256                      # outputs per block, as in csrc/edt_row.cu
-_MAX_SMEM = 48 * 1024           # shared memory a block gets without opt-in
+_PER = 9            # outputs per thread, kPer in csrc/edt_row.cu
+_MAX_THREADS = 1024
+_MAX_SMEM = 232448  # shared memory a block may opt into on the H100 (227 KB)
+
+
+def row_plan(width: int, trunc: int) -> tuple[int, int, int]:
+    """``(seg, nseg, smem_bytes)`` of the kernel for rows of ``width``:
+    ``nseg`` blocks a row (one unless the row needs more than 1024 threads),
+    each of ``seg`` outputs (a multiple of ``_PER``, as even as that allows)
+    on ``seg / _PER`` threads, staging ``seg + 2 * trunc`` values and
+    ``3 * _PER`` of slack."""
+    nseg = max(1, -(-width // (_PER * _MAX_THREADS)))
+    seg = max(_PER, -(-(-(-width // nseg)) // _PER) * _PER)
+    return seg, nseg, (seg + 2 * trunc + 3 * _PER) * 4
 
 
 def edt_row_pass_ref(g2: torch.Tensor, trunc: int) -> torch.Tensor:
@@ -35,9 +47,9 @@ def edt_row_pass_ref(g2: torch.Tensor, trunc: int) -> torch.Tensor:
 
 @functools.cache
 def _entry():
-    fn = cuda_build.load_library("edt_row").edt_row_pass_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = cuda_build.load_library("edt_row").edt_row_pass
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -50,17 +62,20 @@ def edt_row_pass_cuda(g2: torch.Tensor, trunc: int) -> torch.Tensor:
     if g2.dtype != torch.float32 or g2.dim() != 2 or not g2.is_contiguous():
         raise ValueError("edt_row_pass_cuda takes a contiguous f32 [R, W] "
                          f"tensor, got {g2.dtype} {tuple(g2.shape)}")
-    if trunc < 0 or (_SEG + 2 * trunc) * 4 > _MAX_SMEM:
-        raise ValueError(f"trunc={trunc} outside [0, {(_MAX_SMEM // 4 - _SEG) // 2}]")
     r, w = g2.shape
-    if r * -(-w // _SEG) >= 2 ** 31:
+    seg, nseg, smem = row_plan(w, max(trunc, 0))
+    if trunc < 0 or smem > _MAX_SMEM:
+        raise ValueError(f"trunc={trunc} too large for W={w} (shared memory "
+                         f"{smem} > {_MAX_SMEM}) or negative")
+    if r * nseg >= 2 ** 31:
         raise ValueError(f"too many rows for one launch: {tuple(g2.shape)}")
     out = torch.empty_like(g2)
     if g2.numel() == 0:
         return out
     stream = torch.cuda.current_stream(g2.device).cuda_stream
     cuda_build.check(_entry()(g2.data_ptr(), out.data_ptr(), r, w, trunc,
-                              g2.device.index, stream), "edt_row_pass")
+                              seg, smem, g2.device.index, stream),
+                     "edt_row_pass")
     cuda_build.LAUNCHES["edt_row"] += 1
     return out
 

@@ -1,6 +1,7 @@
-"""Wrappers of the FAM window-attention CUDA kernel (``csrc/fam_window.cu``):
-:func:`fam_window` (inference, no logits) and :func:`fam_window_logits`
-(training, also the masked raw logits).
+"""Wrappers of the FAM window-attention CUDA kernels (``csrc/fam_window.cu``):
+:func:`fam_window` (inference, no logits: bf16 on the tensor cores, f32
+one warp per pixel) and :func:`fam_window_logits` (training, also the
+masked raw logits, one warp per pixel).
 
 Their plain version is :func:`tcvom_tpu_torch.ops.fam.fam_attention_ref`.
 """
@@ -16,7 +17,7 @@ from tcvom_tpu_torch.ops import cuda_build
 
 _ENTRIES = {
     (torch.float32, False): "fam_window_f32",
-    (torch.bfloat16, False): "fam_window_bf16",
+    (torch.bfloat16, False): "fam_window_bf16_mma",
     (torch.float32, True): "fam_window_logits_f32",
     (torch.bfloat16, True): "fam_window_logits_bf16",
 }
@@ -31,6 +32,16 @@ def _entry(dtype: torch.dtype, logits: bool):
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+MMA_MAX_WINDOW = 9      # the largest window the bf16 tensor-core kernel takes
+
+
+def check_mma_window(window: int) -> None:
+    """Raise for a window the bf16 tensor-core kernel does not take."""
+    if window < 1 or window % 2 == 0 or window > MMA_MAX_WINDOW:
+        raise ValueError(f"the bf16 kernel takes odd windows up to "
+                         f"{MMA_MAX_WINDOW}, got {window}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
@@ -74,8 +85,12 @@ def fam_window(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
                window: int) -> torch.Tensor:
     """``out = mask * sum_p softmax_p(q.k_p / sqrt(C)) k_p`` on the card.
     q, k: contiguous ``[B, H, W, C]``; mask: contiguous ``[B, H, W, 1]``;
-    all three f32 or all bf16, on one CUDA device; window odd."""
+    all three f32 or all bf16, on one CUDA device; window odd, and at most
+    ``MMA_MAX_WINDOW`` in bf16, whose kernel rounds the softmax weights to
+    bf16 as the TPU kernel does."""
     _check(q, k, mask, window, "fam_window")
+    if q.dtype == torch.bfloat16:
+        check_mma_window(window)
     out = torch.empty_like(q)
     if q.numel():
         _launch(q, k, mask, window, out)

@@ -43,6 +43,36 @@ def test_edt_kernel_bit_exact(dev, rng, r, w, t):
     assert torch.equal(got, edt_kernel.edt_row_pass_ref(g2, t))
 
 
+@pytest.mark.parametrize("r,w,t", [
+    (7, 1920, 0), (7, 1920, 1), (9, 1153, 32), (5, 2305, 256),
+    (4, 20, 256),                       # W < T
+    (6, 100, 33), (3, 9217, 75),        # W past the per-thread block, segment
+    (2, 300, 4200)])                    # offsets past d^2's exact f32 range
+def test_edt_kernel_edges_bit_exact(dev, rng, r, w, t):
+    g2 = np.where(rng.rand(r, w) < 0.02, 0.0,
+                  rng.randint(0, 3000, (r, w))).astype(np.float32)
+    g2[1] = 1e7                         # a row with no seed
+    g2 = torch.from_numpy(g2).to(dev)
+    got = edt_kernel.edt_row_pass_cuda(g2, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, edt_kernel.edt_row_pass_ref(g2, t))
+
+
+def test_edt_kernel_bit_exact_off_integers(dev, rng):
+    """Non-integer, negative, huge and infinite values: a block holding a
+    value the DPX form of the sweep does not take exactly runs the f32
+    form, so the kernel stays bit-exact."""
+    g2 = np.abs(rng.randn(6, 700) * 1e3).astype(np.float32)
+    g2[1] *= -1                         # negative: the f32 form
+    g2[2, 5] = -0.0
+    g2[3] += 3e7                        # beyond 2^24
+    g2[4, 7] = np.inf
+    g2 = torch.from_numpy(g2).to(dev)
+    got = edt_kernel.edt_row_pass_cuda(g2, 40)
+    torch.cuda.synchronize()
+    assert torch.equal(got, edt_kernel.edt_row_pass_ref(g2, 40))
+
+
 def _fam_inputs(rng, shape, dtype, dev):
     b, h, w, c = shape
     q = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32))
@@ -66,6 +96,32 @@ def test_fam_kernel_matches_plain(dev, rng, shape, window, dtype):
     tol = (dict(atol=1e-5, rtol=0) if dtype == torch.float32
            else dict(atol=2e-2, rtol=2e-2))
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("c", [1, 8, 32, 256, 300])
+@pytest.mark.parametrize("window", [3, 5, 7, 9])
+def test_fam_bf16_tensor_core_kernel_edges(dev, rng, c, window):
+    """The bf16 tensor-core kernel at ragged tiles (H, W not multiples of
+    8), every channel chunking, a fully masked frame (exactly 0) and logits
+    of large magnitude (q, k x 30, so the max subtraction matters). bf16:
+    both accumulate in f32; the kernel rounds its weights to bf16, the
+    plain version only its output (2^-8 relative each)."""
+    q, k, m = _fam_inputs(rng, (3, 13, 21, c), torch.bfloat16, dev)
+    q[2], k[2] = q[2] * 30, k[2] * 30
+    m[1] = 0
+    got = fam_kernel.fam_window(q, k, m, window)
+    torch.cuda.synchronize()
+    want, _ = fam.fam_attention_ref(q, k, m, window)
+    assert not got[1].any()
+    scale = torch.tensor([1.0, 1.0, 30.0], device=dev).view(3, 1, 1, 1)
+    torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_fam_bf16_rejects_windows_past_its_tiling(dev, rng):
+    q, k, m = _fam_inputs(rng, (1, 4, 6, 8), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="odd windows up to"):
+        fam_kernel.fam_window(q, k, m, fam_kernel.MMA_MAX_WINDOW + 2)
 
 
 @pytest.mark.parametrize("shape,window", [

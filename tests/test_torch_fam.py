@@ -73,6 +73,96 @@ def test_fam_dispatch_cpu_takes_plain_version(rng):
     assert torch.equal(out, want_out) and torch.equal(lg, want_lg)
 
 
+_MMA_TILE = (8, 8)      # query rows, columns of a block (Plan in the .cu)
+
+
+def _mma_plan(window):
+    """csrc/fam_window.cu's Plan<window // 2>: the halo a block stages, and
+    the halo columns each warp's 16 rows meet (``cols``, padded to
+    ``cols_pad`` for the k-steps of ``P . K``)."""
+    r = window // 2
+    th, tw = _MMA_TILE
+    halo = (th + 2 * r, tw + 2 * r)
+    cols = (2 * r + 2) * halo[1]
+    return dict(halo=halo, cols=cols, cols_pad=-(-cols // 16) * 16)
+
+
+@pytest.mark.parametrize("window", [1, 3, 5, 7, 9])
+def test_fam_mma_plan(window):
+    """The bf16 tensor-core kernel's plan: each warp's columns hold every
+    neighbour of its 16 rows and pad to whole k-steps; the wrapper takes
+    the window (the .cu holds the shared memory to 48 KB at compile
+    time)."""
+    fam_kernel.check_mma_window(window)
+    plan = _mma_plan(window)
+    r = window // 2
+    assert plan["halo"] == (8 + 2 * r, 8 + 2 * r)
+    assert plan["cols"] == (2 * r + 2) * (8 + 2 * r) >= window * window
+    assert plan["cols_pad"] % 16 == 0 and plan["cols_pad"] - plan["cols"] < 16
+
+
+@pytest.mark.parametrize("window", [0, 2, 8, 11, 13])
+def test_fam_mma_plan_refuses_windows(window):
+    with pytest.raises(ValueError, match="odd windows up to 9"):
+        fam_kernel.check_mma_window(window)
+
+
+def _mma_tiling(q, k, mask, window):
+    """The tensor-core kernel's algorithm in torch, tile by tile and warp by
+    warp as csrc/fam_window.cu runs it: each warp's 16 rows against its
+    halo columns, the band picked by the kernel's index arithmetic, the
+    unnormalised weights rounded to bf16, divided by their f32 sum."""
+    b, h, w, c = q.shape
+    plan = _mma_plan(window)
+    r, (hh, hw) = window // 2, plan["halo"]
+    th, tw = _MMA_TILE
+    ty, tx = -(-h // th), -(-w // tw)
+    kp = torch.nn.functional.pad(k.float(), (0, 0, r, r + tx * tw - w,
+                                             r, r + ty * th - h))
+    qp = torch.nn.functional.pad(q.float(), (0, 0, 0, tx * tw - w,
+                                             0, ty * th - h))
+    out = torch.zeros(b, ty * th, tx * tw, c)
+    i = torch.arange(16)[:, None]
+    col = torch.arange(plan["cols_pad"])[None]
+    dy, dx = col // hw - i // 8, col % hw - i % 8
+    band = (col < plan["cols"]) & (dy >= 0) & (dy <= 2 * r) \
+        & (dx >= 0) & (dx <= 2 * r)
+    for n in range(b):
+        for y0 in range(0, ty * th, th):
+            for x0 in range(0, tx * tw, tw):
+                halo = kp[n, y0:y0 + hh, x0:x0 + hw].reshape(-1, c)
+                halo = torch.cat([halo, halo.new_zeros(
+                    plan["cols_pad"] - plan["cols"], c)])
+                for wp in range(th // 2):
+                    cols = halo[2 * wp * hw:2 * wp * hw + plan["cols_pad"]]
+                    rows = qp[n, y0 + 2 * wp:y0 + 2 * wp + 2, x0:x0 + tw]
+                    s = rows.reshape(16, c) @ cols.T
+                    s = s.masked_fill(~band, -torch.inf)
+                    p = torch.exp((s - s.amax(1, keepdim=True)) / c ** 0.5)
+                    p = p.bfloat16().float()
+                    o = (p @ cols) / p.sum(1, keepdim=True)
+                    out[n, y0 + 2 * wp:y0 + 2 * wp + 2, x0:x0 + tw] = \
+                        o.reshape(2, tw, c)
+    return (out[:, :h, :w] * mask.float()).bfloat16()
+
+
+@pytest.mark.parametrize("shape,window", [((2, 13, 21, 24), 3),
+                                          ((1, 16, 24, 32), 7),
+                                          ((1, 11, 9, 8), 9)])
+def test_fam_mma_tiling_matches_jax(rng, shape, window):
+    """The tiling and band arithmetic of the bf16 tensor-core kernel (which
+    runs only on the card) against the JAX formulation, on bf16 inputs at
+    ragged shapes; 2e-2 covers the bf16 weights and output."""
+    q, k, mask = _inputs(rng, shape)
+    tb = torch.bfloat16
+    q, k, mask = (torch.from_numpy(a).to(tb) for a in (q, k, mask))
+    want, _ = fam_xla(*(jnp.asarray(t.float().numpy()) for t in (q, k, mask)),
+                      window)
+    got = _mma_tiling(q, k, mask, window)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
+                               atol=2e-2, rtol=2e-2)
+
+
 @pytest.mark.parametrize("wrapper", ["fam_window", "fam_window_logits"])
 def test_fam_window_rejects_cpu_tensor(wrapper):
     q = torch.zeros(1, 4, 4, 8)

@@ -120,6 +120,82 @@ def test_edt_row_pass_ref_bit_exact_vs_pallas(rng, r, w):
         TE.edt_row_pass(torch.from_numpy(g2), t).numpy(), want)
 
 
+@pytest.mark.parametrize("w", [1, 9, 100, 512, 960, 1920, 2305, 9216, 9217,
+                               20000])
+def test_edt_row_plan(w):
+    """Segments of whole per-thread blocks, as even as they allow, at most
+    1024 threads a block, and shared memory within the opt-in limit for
+    every truncation a 256-output block took within 48 KB (T <= 5996)."""
+    per = TE._PER
+    for t in (0, 1, 256, 5996):
+        seg, nseg, smem = TE.row_plan(w, t)
+        assert seg % per == 0 and seg // per <= 1024
+        assert nseg * seg >= w > (nseg - 1) * seg and seg - per < -(-w // nseg)
+        assert smem == (seg + 2 * t + 3 * per) * 4 <= TE._MAX_SMEM
+
+
+def _edt_sweep(g2: np.ndarray, t: int) -> np.ndarray:
+    """csrc/edt_row.cu's sweep (its f32 form, which the DPX form equals on
+    non-negative values) in numpy, segment by segment and thread by
+    thread, with its register windows and running d^2; every read of the
+    staged row is checked against the staging's bounds."""
+    per = TE._PER
+    r, w = g2.shape
+    seg, nseg, smem = TE.row_plan(w, t)
+    span = smem // 4
+    out = np.full_like(g2, np.nan)
+
+    def sweep(c):
+        acc = [c(u) for u in range(per)]
+        lw = [c(i - per) for i in range(2 * per - 1)]
+        rw = [c(1 + i) for i in range(2 * per - 1)]
+        d2, step, d0 = np.float32(1), np.float32(3), 1
+        while d0 + per - 1 <= min(t, 4095):
+            for dd in range(per):
+                for u in range(per):
+                    acc[u] = min(acc[u], min(lw[u - dd + per - 1],
+                                             rw[u + dd]) + d2)
+                d2, step = d2 + step, step + np.float32(2)
+            lw = [c(i - d0 - 2 * per + 1) for i in range(per)] + lw[:per - 1]
+            rw = rw[per:] + [c(d0 + per + i)
+                             for i in range(per - 1, 2 * per - 1)]
+            d0 += per
+        for d in range(d0, t + 1):
+            for u in range(per):
+                acc[u] = min(acc[u], min(c(u - d), c(u + d))
+                             + np.float32(d * d))
+        return np.array(acc, np.float32)
+
+    for row in range(r):
+        for j0 in range(0, nseg * seg, seg):
+            cols = j0 - t - per + np.arange(span)
+            s = np.where((cols >= 0) & (cols < w),
+                         g2[row, np.clip(cols, 0, w - 1)], np.float32(1e7))
+            for first in range(0, seg, per):
+                if j0 + first >= w:
+                    continue
+
+                def c(x, at=per + t + first):
+                    assert 0 <= at + x < span
+                    return s[at + x]
+
+                res = sweep(c)
+                n = min(per, w - j0 - first)
+                out[row, j0 + first:j0 + first + n] = res[:n]
+    return out
+
+
+@pytest.mark.parametrize("r,w,t", [(3, 40, 20), (2, 9217, 3), (4, 7, 0),
+                                   (2, 30, 1), (2, 50, 40)])
+def test_edt_register_sweep_bit_exact(rng, r, w, t):
+    """The CUDA kernel's blocking and sliding windows (which run only on
+    the card), emulated, against the plain version: bit-exact."""
+    g2 = np.where(rng.rand(r, w) < 0.05, 0.0,
+                  rng.randint(0, 3000, (r, w))).astype(np.float32)
+    want = TE.edt_row_pass_ref(torch.from_numpy(g2), t).numpy()
+    np.testing.assert_array_equal(_edt_sweep(g2, t), want)
+
+
 def test_edt_row_pass_cuda_rejects_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         TE.edt_row_pass_cuda(torch.zeros(4, 8), 2)
