@@ -7,19 +7,22 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: both CUDA kernels from tcvom_tpu_torch/csrc, with ptxas's
-   register and shared-memory report;
+   register and shared-memory report and each kernel's SASS instruction
+   count;
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (EDT row pass bit-exact; FAM attention f32 to 1e-5, bf16
-   to 2e-2), with CUDA-event times and the card's bound for the same work;
+   path's shapes (EDT row pass bit-exact; both FAM entries, out and
+   logits, f32 to 1e-5, bf16 to 2e-2), with CUDA-event times and the
+   card's bound for the same work;
 4. the main path in f32 at full width (vmn_fba, 1088x1920, window 7,
    random weights from a seed): once through the kernels, once with the
    plain versions substituted; the uint8 mattes agree within one level;
+   the decode's time;
 5. the main path in bf16, as users run it: the launch counts must equal
    the encodes (EDT) and decodes (FAM); known trimap pixels pasted
    exactly; the uint8 mattes against the plain versions' within
    BF16_STREAM (calibrated below); steady-state times and memory;
-6. train_kernels: the logits-writing FAM kernel against its plain version
-   at the training path's shapes (f32 to 1e-5, bf16 to 2e-2), the autograd
+6. train_kernels: both FAM entries against the plain version at the
+   training path's shapes (f32 to 1e-5, bf16 to 2e-2), the autograd
    Function's dq, dk against the plain version's autograd, and its times;
    the EDT row pass bit-exact at the inputs make_trimap gives it in the
    train and validation steps, with its times at the train step's;
@@ -29,9 +32,12 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    versions (losses, gradients, launch counts), five more steps (finite
    losses, ms, peak memory) and one validation step (B=6, S=3, 544x960).
 
-The last line is ``{"ok": true, "device": {...}}``; any failure exits
-non-zero before it. ``--profile FILE`` adds torch.profiler breakdowns of
-two bf16 stream steps and two train steps, their tables written to FILE.
+The line before the last lists every kernel row (name, route, source,
+the TPU kernel it replaces, launches on its path, error, ms, plain ms,
+bound); the last line is ``{"ok": true, "device": {...}}``; any failure
+exits non-zero before it. ``--profile FILE`` adds torch.profiler
+breakdowns of two bf16 stream steps and two train steps, their tables
+written to FILE.
 """
 from __future__ import annotations
 
@@ -111,6 +117,28 @@ def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
                                         else "operations")
 
 
+def sass_counts(lib) -> dict[str, int]:
+    """Instructions (NOPs left out) of each kernel in the built library
+    ``lib``, by demangled name, from ``cuobjdump -sass``."""
+    import re
+    cuda_bin = "/usr/local/cuda/bin"
+    sass = subprocess.run([f"{cuda_bin}/cuobjdump", "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)", line):
+            counts[name] += 1
+    names = subprocess.run([f"{cuda_bin}/cu++filt"], input="\n".join(counts),
+                           capture_output=True, text=True, timeout=60,
+                           check=True).stdout.splitlines()
+    return dict(zip(names, counts.values()))
+
+
 def run_plain_stream(sp, frames, fam, edt_kernel, cuda_build):
     """The stream through the plain versions of both kernels; it must
     launch none."""
@@ -186,10 +214,9 @@ def hold_edt(edt_kernel, x, t: int, timed: bool = False, **where):
     r, w = x.shape
     b_ms, b_by = bound(2 * r * w * 4, EDT_OPS_PER_OUTPUT * r * w,
                        "f32 add/min")
-    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by)
-    emit(phase="time", kernel="edt_row", **where, shape=list(x.shape),
-         trunc=t, **res,
+    res = dict(shape=list(x.shape), dtype=str(x.dtype), max_abs_err=err,
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    emit(phase="time", kernel="edt_row", **where, trunc=t, **res,
          loop_ceiling_ms=3 * t * r * w / PEAK_OPS["f32 add/min"] * 1e3)
     return res
 
@@ -213,11 +240,13 @@ def check_edt_train(edt_kernel):
     """Kernel A at the inputs make_trimap gives it on the training path:
     the column pass of the train batch's bg/fg planes ([B*S*2*512, 512]),
     timed, and of the validation batch's ([B*S*2*544, 960]), captured
-    from preprocess with the plain row pass standing in."""
+    from preprocess with the plain row pass standing in. Returns the
+    train shape's times."""
     from tcvom_tpu_torch.models.full_model import (TaskConfig, draw_radius,
                                                    preprocess)
 
     cfg = TaskConfig(model="vmn_fba", agg_window=WINDOW)
+    res = None
     for b, s, h, w, seed, path in ((1, 5, 512, 512, 5, "train"),
                                    (6, 3, 544, 960, 6, "val")):
         clip = make_clip(b, s, h, w, seed)
@@ -232,8 +261,10 @@ def check_edt_train(edt_kernel):
                        draw_radius(b, torch.Generator().manual_seed(3)))
         if len(seen) != 1:
             fail(f"preprocess at {[b, s, h, w]} ran {len(seen)} row passes")
-        hold_edt(edt_kernel, *seen[0], timed=path == "train", path=path)
+        res = hold_edt(edt_kernel, *seen[0], timed=path == "train",
+                       path=path) or res
         del clip, seen
+    return res
 
 
 def fam_counts(mask, c, window, logits=False):
@@ -254,89 +285,86 @@ def fam_counts(mask, c, window, logits=False):
     return nbytes, 4.0 * c * (inside * torch.outer(ny, nx)).sum().item()
 
 
+def hold_fam(fam, fam_kernel, rng, shape, window, dtype):
+    """Both FAM entries against the plain version on inputs drawn from
+    ``rng`` at ``shape``: out of each, and the logits; f32 to 1e-5 (rtol
+    0), bf16 to 2e-2. Returns q, k, mask and the largest errors."""
+    b, h, w, c = shape
+    q, k = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            for _ in range(2))
+    m = torch.from_numpy((rng.rand(b, h, w, 1) > 0.4).astype(np.float32))
+    q, k, m = (t.to("cuda", dtype) for t in (q, k, m))
+    got = {"fam_window": (fam_kernel.fam_window(q, k, m, window),),
+           "fam_window_logits": fam_kernel.fam_window_logits(q, k, m,
+                                                             window)}
+    torch.cuda.synchronize()
+    want = fam.fam_attention_ref(q, k, m, window)
+    atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (2e-2, 2e-2)
+    errs = {}
+    for name, outs in got.items():
+        for what, g, wt in zip(("out", "logits"), outs, want):
+            err = (g.float() - wt.float()).abs()
+            bad = (err > atol + rtol * wt.float().abs()).sum().item()
+            errs[f"{name} {what}"] = err.max().item()
+            if bad:
+                fail(f"{name} {shape} {dtype} {what}: {bad} elements off")
+    emit(phase="check", kernel="fam_window, fam_window_logits",
+         shape=list(shape), window=window, dtype=str(dtype), atol=atol,
+         rtol=rtol, max_abs_err=errs)
+    return (q, k, m), errs
+
+
 def check_fam(fam, fam_kernel):
-    """Kernel B at the main path's [prev; next] batch in f32 and bf16, and
-    at a narrow shape."""
+    """Kernel B (``fam_window``) at the main path's [prev; next] batch in
+    f32 and bf16, timed, and at a narrow shape; the logits entry is held
+    at the same inputs."""
     rng = np.random.RandomState(2)
     results = {}
     for shape, window, dtype in (((2, 136, 240, 256), WINDOW, torch.float32),
                                  ((2, 136, 240, 256), WINDOW, torch.bfloat16),
                                  ((2, 16, 24, 32), 3, torch.float32),
                                  ((2, 16, 24, 32), 3, torch.bfloat16)):
-        b, h, w, c = shape
-        q = torch.from_numpy(rng.randn(*shape).astype(np.float32))
-        k = torch.from_numpy(rng.randn(*shape).astype(np.float32))
-        m = torch.from_numpy((rng.rand(b, h, w, 1) > 0.4).astype(np.float32))
-        q, k, m = (t.to("cuda", dtype) for t in (q, k, m))
-        got = fam_kernel.fam_window(q, k, m, window)
-        torch.cuda.synchronize()
-        want, _ = fam.fam_attention_ref(q, k, m, window)
-        atol = rtol = 1e-5 if dtype == torch.float32 else 2e-2
-        if dtype == torch.float32:
-            rtol = 0.0
-        err = (got.float() - want.float()).abs()
-        bad = (err > atol + rtol * want.float().abs()).sum().item()
-        emit(phase="check", kernel="fam_window", shape=list(shape),
-             window=window, dtype=str(dtype), atol=atol, rtol=rtol,
-             max_abs_err=err.max().item(), violations=bad)
-        if bad:
-            fail(f"fam_window {shape} {dtype}: {bad} elements off")
-        if h == 136:
-            ms = time_ms(lambda: fam_kernel.fam_window(q, k, m, window), 20)
-            plain_ms = time_ms(
-                lambda: fam.fam_attention_ref(q, k, m, window), 3)
-            b_ms, b_by = bound(*fam_counts(m, c, window), dtype)
-            results[dtype] = dict(max_abs_err=err.max().item(), ms=ms,
-                                  plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by)
-            emit(phase="time", kernel="fam_window", dtype=str(dtype),
-                 **results[dtype])
+        (q, k, m), errs = hold_fam(fam, fam_kernel, rng, shape, window, dtype)
+        if shape[1] != 136:
+            continue
+        ms = time_ms(lambda: fam_kernel.fam_window(q, k, m, window), 20)
+        plain_ms = time_ms(lambda: fam.fam_attention_ref(q, k, m, window), 3)
+        b_ms, b_by = bound(*fam_counts(m, shape[3], window), dtype)
+        results[dtype] = dict(shape=list(shape), dtype=str(dtype),
+                              max_abs_err=errs["fam_window out"], ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        emit(phase="time", kernel="fam_window", **results[dtype])
     return results
 
 
 def check_fam_logits(fam, fam_kernel):
-    """The logits-writing kernel (replacing TPU kernels C and D) at the
+    """The logits-writing entry (replacing TPU kernels C and D) at the
     training step's [prev; next] batch (B*(S-2)*2 = 6 at 64x64), the
-    validation step's (12 at 68x120) and a narrow shape in f32 and bf16;
-    then the autograd Function's dq, dk against the plain version's
-    autograd at the training shape, with random d_out and d_logits.
-    Returns the times at the training and validation shapes, by shape."""
+    validation step's (12 at 68x120), timed, and a narrow shape in f32 and
+    bf16, the inference entry held at the same inputs; then the autograd
+    Function's dq, dk against the plain version's autograd at the training
+    shape, with random d_out and d_logits. Returns the times at the
+    training and validation shapes, by shape."""
     rng = np.random.RandomState(4)
     res = {}
     for shape, window, dtype in (((6, 64, 64, 256), WINDOW, torch.float32),
                                  ((12, 68, 120, 256), WINDOW, torch.float32),
                                  ((2, 16, 24, 32), 3, torch.float32),
                                  ((2, 16, 24, 32), 3, torch.bfloat16)):
+        (q, k, m), errs = hold_fam(fam, fam_kernel, rng, shape, window, dtype)
         b, h, w, c = shape
-        q, k = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
-                for _ in range(2))
-        m = torch.from_numpy((rng.rand(b, h, w, 1) > 0.4).astype(np.float32))
-        q, k, m = (t.to("cuda", dtype) for t in (q, k, m))
-        got = fam_kernel.fam_window_logits(q, k, m, window)
-        torch.cuda.synchronize()
-        want = fam.fam_attention_ref(q, k, m, window)
-        atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (2e-2, 2e-2)
-        errs = []
-        for name, g, wt in zip(("out", "logits"), got, want):
-            err = (g.float() - wt.float()).abs()
-            bad = (err > atol + rtol * wt.float().abs()).sum().item()
-            errs.append(err.max().item())
-            if bad:
-                fail(f"fam_window_logits {shape} {dtype} {name}: "
-                     f"{bad} elements off")
-        emit(phase="check", kernel="fam_window_logits", shape=list(shape),
-             window=window, dtype=str(dtype), atol=atol, rtol=rtol,
-             max_abs_err_out=errs[0], max_abs_err_logits=errs[1])
         if h < 64:
             continue
         ms = time_ms(lambda: fam_kernel.fam_window_logits(q, k, m, window),
                      20)
         plain_ms = time_ms(lambda: fam.fam_attention_ref(q, k, m, window), 3)
         b_ms, b_by = bound(*fam_counts(m, c, window, logits=True), dtype)
-        res[shape] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by)
-        emit(phase="time", kernel="fam_window_logits", shape=list(shape),
-             dtype=str(dtype), **res[shape])
+        res[shape] = dict(shape=list(shape), dtype=str(dtype),
+                          max_abs_err=max(errs["fam_window_logits out"],
+                                          errs["fam_window_logits logits"]),
+                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+        emit(phase="time", kernel="fam_window_logits", **res[shape])
         if b == 6:
             grads = []
             d_out, d_lg = (torch.from_numpy(rng.randn(*s).astype(
@@ -381,7 +409,8 @@ def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
     """The video trainer at full width and depth: a kernel step against a
     plain step from the same weights, batch and radius; five more kernel
     steps (and a profile of two with ``profile_path``); one validation
-    step. Returns the launches of the kernel step."""
+    step. Returns the launches of the kernel step and of the validation
+    step."""
     from tcvom_tpu_torch.models.full_model import TaskConfig, draw_radius
     from tcvom_tpu_torch.train.trainer import MattingTrainer
 
@@ -475,7 +504,7 @@ def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
         fail(f"validation launch counts {val_counts}")
     if not np.isfinite(value.item()) or alpha_c.shape != (6, 544, 960, 1):
         fail(f"validation value {value.item()}, alpha {tuple(alpha_c.shape)}")
-    return counts
+    return counts, val_counts
 
 
 def main():
@@ -514,6 +543,8 @@ def main():
             if "spill" in line or ("ptxas info" in line and (
                     "Used" in line or "entry function" in line)):
                 print(f"{name}: {line.strip()}", flush=True)
+        emit(phase="sass", source=name,
+             instructions=sass_counts(cuda_build.library_path(name)))
 
     # -- 3. kernels against their plain versions -------------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -530,9 +561,13 @@ def main():
     cuda_build.LAUNCHES.clear()
     got = run_stream(sp32, frames[:4])
     f32_counts = dict(cuda_build.LAUNCHES)
+    feats = [sp32.encode(*frames[i]) for i in range(3)]
+    dec32_ms = host_ms(lambda: sp32.decode(*feats), 10)
+    del feats
 
     want = run_plain_stream(sp32, frames[:4], fam, edt_kernel, cuda_build)
-    diff, same = hold_stream("main_f32", want, got, launches=f32_counts)
+    diff, same = hold_stream("main_f32", want, got, launches=f32_counts,
+                             decode_ms=dec32_ms)
     if f32_counts != {"edt_row": 4, "fam_window": 4}:
         fail(f"f32 launch counts {f32_counts}, want 4 encodes and 4 decodes")
     if diff > 1 or same < 0.999:
@@ -590,27 +625,36 @@ def main():
 
     # -- 6. training kernels against their plain versions -----------------------
     logits_res = check_fam_logits(fam, fam_kernel)
-    check_edt_train(edt_kernel)
+    edt_train_res = check_edt_train(edt_kernel)
 
     # -- 7. the video trainer, f32, full width and depth -------------------------
-    train_counts = train_phase(fam, edt_kernel, cuda_build, args.profile)
+    train_counts, val_counts = train_phase(fam, edt_kernel, cuda_build,
+                                           args.profile)
 
+    # every row: the launches are its own path's (counts set to 0 just
+    # before the path, read just after), the rest measured above
+    edt = dict(name="edt_row", route="cuda",
+               source="tcvom_tpu_torch/csrc/edt_row.cu",
+               replaces="tcvom_tpu/ops/edt_pallas.py:39", library_ms=None)
+    famk = dict(route="cuda", source="tcvom_tpu_torch/csrc/fam_window.cu",
+                library_ms=None)
     kernels = [
-        dict(name="edt_row", route="cuda",
-             source="tcvom_tpu_torch/csrc/edt_row.cu",
-             replaces="tcvom_tpu/ops/edt_pallas.py:39",
-             launches=counts["edt_row"], library_ms=None, **edt_res),
-        dict(name="fam_window", route="cuda",
-             source="tcvom_tpu_torch/csrc/fam_window.cu",
+        dict(edt, launches=counts["edt_row"], **edt_res),
+        dict(edt, launches=train_counts["edt_row"], **edt_train_res),
+        dict(famk, name="fam_window",
              replaces="tcvom_tpu/ops/fam_pallas.py:190",
-             launches=counts["fam_window"], library_ms=None,
-             **fam_res[torch.bfloat16]),
-        dict(name="fam_window_logits", route="cuda",
-             source="tcvom_tpu_torch/csrc/fam_window.cu",
-             replaces="tcvom_tpu/ops/fam_pallas.py:38, "
-                      "tcvom_tpu/ops/fam_pallas.py:97",
-             launches=train_counts["fam_window_logits"], library_ms=None,
+             launches=counts["fam_window"], **fam_res[torch.bfloat16]),
+        dict(famk, name="fam_window",
+             replaces="tcvom_tpu/ops/fam_pallas.py:190",
+             launches=f32_counts["fam_window"], **fam_res[torch.float32]),
+        dict(famk, name="fam_window_logits",
+             replaces="tcvom_tpu/ops/fam_pallas.py:38",
+             launches=train_counts["fam_window_logits"],
              **logits_res[(6, 64, 64, 256)]),
+        dict(famk, name="fam_window_logits",
+             replaces="tcvom_tpu/ops/fam_pallas.py:97",
+             launches=val_counts["fam_window_logits"],
+             **logits_res[(12, 68, 120, 256)]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
-"""Wrappers of the FAM window-attention CUDA kernels (``csrc/fam_window.cu``):
-:func:`fam_window` (inference, no logits: bf16 on the tensor cores, f32
-one warp per pixel) and :func:`fam_window_logits` (training, also the
-masked raw logits, one warp per pixel).
+"""Wrappers of the FAM window-attention CUDA kernel (``csrc/fam_window.cu``,
+one tensor-core tile kernel: bf16 products in one pass, f32 in 3xTF32):
+:func:`fam_window` (inference, no logits) and :func:`fam_window_logits`
+(training, also the masked raw logits).
 
 Their plain version is :func:`tcvom_tpu_torch.ops.fam.fam_attention_ref`.
 """
@@ -34,13 +34,13 @@ def _entry(dtype: torch.dtype, logits: bool):
     return fn
 
 
-MMA_MAX_WINDOW = 9      # the largest window the bf16 tensor-core kernel takes
+MMA_MAX_WINDOW = 9      # the largest window the tile kernel takes
 
 
 def check_mma_window(window: int) -> None:
-    """Raise for a window the bf16 tensor-core kernel does not take."""
+    """Raise for a window the tile kernel does not take (every entry)."""
     if window < 1 or window % 2 == 0 or window > MMA_MAX_WINDOW:
-        raise ValueError(f"the bf16 kernel takes odd windows up to "
+        raise ValueError(f"the FAM kernel takes odd windows up to "
                          f"{MMA_MAX_WINDOW}, got {window}")
 
 
@@ -61,11 +61,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
                          "and [B,H,W,1]")
     if not (q.is_contiguous() and k.is_contiguous() and mask.is_contiguous()):
         raise ValueError(f"{what} takes contiguous tensors")
-    if window < 1 or window % 2 == 0:
-        raise ValueError(f"window must be odd and positive, got {window}")
-    b, h, w, c = q.shape
-    if c < 1 or b * h * w >= 2 ** 34:           # grid.x is 32 bits
+    check_mma_window(window)
+    if q.shape[3] < 1:
         raise ValueError(f"unsupported shape {tuple(q.shape)}")
+    # a grid of 2^31 tiles or more is refused by the C entry
 
 
 def _launch(q, k, mask, window, out, logits=None):
@@ -85,12 +84,10 @@ def fam_window(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
                window: int) -> torch.Tensor:
     """``out = mask * sum_p softmax_p(q.k_p / sqrt(C)) k_p`` on the card.
     q, k: contiguous ``[B, H, W, C]``; mask: contiguous ``[B, H, W, 1]``;
-    all three f32 or all bf16, on one CUDA device; window odd, and at most
-    ``MMA_MAX_WINDOW`` in bf16, whose kernel rounds the softmax weights to
-    bf16 as the TPU kernel does."""
+    all three f32 or all bf16, on one CUDA device; window odd, at most
+    ``MMA_MAX_WINDOW``. In bf16 the kernel rounds the softmax weights to
+    bf16 as the TPU kernel does; in f32 it keeps them f32."""
     _check(q, k, mask, window, "fam_window")
-    if q.dtype == torch.bfloat16:
-        check_mma_window(window)
     out = torch.empty_like(q)
     if q.numel():
         _launch(q, k, mask, window, out)

@@ -118,10 +118,56 @@ def test_fam_bf16_tensor_core_kernel_edges(dev, rng, c, window):
                                atol=2e-2, rtol=2e-2)
 
 
-def test_fam_bf16_rejects_windows_past_its_tiling(dev, rng):
-    q, k, m = _fam_inputs(rng, (1, 4, 6, 8), torch.bfloat16, dev)
+@pytest.mark.parametrize("c", [1, 8, 32, 256, 300])
+@pytest.mark.parametrize("window", [3, 5, 7, 9])
+def test_fam_f32_tensor_core_kernel_edges(dev, rng, c, window):
+    """Both f32 entries (3xTF32 on the tensor cores) at ragged tiles (H, W
+    not multiples of 8), every channel chunking (32 f32 channels a chunk;
+    C = 1 and 300 take the unvectorised staging), a fully masked frame
+    (out and logits exactly 0) and logits of large magnitude (q, k x 30).
+    Frame 0 against the plain version at the f32 entries' 1e-5; the two
+    entries' out bit for bit (one kernel). Frame 2 against the plain
+    version in f64, out / 30 within 1e-3 and logits / 900 within 1e-5:
+    its logits spread ~900 wide, and there f32's own rounding moves the
+    weights of near-tied neighbours (the plain f32 version misses the f64
+    one by up to 2e-4 in out / 30 on these inputs)."""
+    q, k, m = _fam_inputs(rng, (3, 13, 21, c), torch.float32, dev)
+    q[2], k[2] = q[2] * 30, k[2] * 30
+    m[1] = 0
+    out = fam_kernel.fam_window(q, k, m, window)
+    got, lg = fam_kernel.fam_window_logits(q, k, m, window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    assert not got[1].any() and not lg[1].any()
+    want, want_lg = fam.fam_attention_ref(q[:1], k[:1], m[:1], window)
+    torch.testing.assert_close(got[:1], want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lg[:1], want_lg, atol=1e-5, rtol=0)
+    want, want_lg = fam.fam_attention_ref(
+        *(t[2:].double() for t in (q, k, m)), window)
+    torch.testing.assert_close(got[2:].double() / 30, want / 30, atol=1e-3,
+                               rtol=0)
+    torch.testing.assert_close(lg[2:].double() / 900, want_lg / 900,
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("logits", [False, True])
+def test_fam_rejects_windows_past_its_tiling(dev, rng, dtype, logits):
+    """Every entry refuses window 11: the wrapper raises before launching,
+    and the C entry itself returns cudaErrorInvalidValue (1)."""
+    q, k, m = _fam_inputs(rng, (1, 4, 6, 8), dtype, dev)
+    wrapper = fam_kernel.fam_window_logits if logits else fam_kernel.fam_window
+    cuda_build.LAUNCHES.clear()
     with pytest.raises(ValueError, match="odd windows up to"):
-        fam_kernel.fam_window(q, k, m, fam_kernel.MMA_MAX_WINDOW + 2)
+        wrapper(q, k, m, fam_kernel.MMA_MAX_WINDOW + 2)
+    assert not cuda_build.LAUNCHES
+    outs = [torch.empty_like(q)] + ([q.new_empty(1, 4, 6, 121)] if logits
+                                    else [])
+    rc = fam_kernel._entry(dtype, logits)(
+        q.data_ptr(), k.data_ptr(), m.data_ptr(),
+        *(t.data_ptr() for t in outs), 1, 4, 6, 8, 11, 8 ** -0.5,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    assert rc == 1
 
 
 @pytest.mark.parametrize("shape,window", [

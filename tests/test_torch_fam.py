@@ -89,7 +89,7 @@ def _mma_plan(window):
 
 @pytest.mark.parametrize("window", [1, 3, 5, 7, 9])
 def test_fam_mma_plan(window):
-    """The bf16 tensor-core kernel's plan: each warp's columns hold every
+    """The tensor-core kernel's plan: each warp's columns hold every
     neighbour of its 16 rows and pad to whole k-steps; the wrapper takes
     the window (the .cu holds the shared memory to 48 KB at compile
     time)."""
@@ -107,43 +107,92 @@ def test_fam_mma_plan_refuses_windows(window):
         fam_kernel.check_mma_window(window)
 
 
-def _mma_tiling(q, k, mask, window):
+def _tf32_split(x):
+    """csrc/fam_window.cu's split_tf32 in torch, as the tensor core reads
+    the two terms: big, x rounded to tf32 to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``: add half of the low 13 bits' range to the
+    sign-magnitude bit pattern, clear them), and small, the tf32 part of
+    the exact f32 x - big (the tensor core ignores an operand's low 13
+    bits). Returns (big, small), f32 tensors."""
+    def bits(v):
+        return v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    def f32(u):
+        return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(
+            torch.int32).view(torch.float32)
+
+    big = f32((bits(x) + 0x1000) & 0xFFFFE000)
+    return big, f32(bits(x - big) & 0xFFFFE000)
+
+
+def _mm_3xtf32(a, b):
+    """``a @ b`` as the kernel's 3xTF32 products, the small terms first."""
+    (ab, as_), (bb, bs) = _tf32_split(a), _tf32_split(b)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def _mma_tiling(q, k, mask, window, tf32=False):
     """The tensor-core kernel's algorithm in torch, tile by tile and warp by
     warp as csrc/fam_window.cu runs it: each warp's 16 rows against its
-    halo columns, the band picked by the kernel's index arithmetic, the
-    unnormalised weights rounded to bf16, divided by their f32 sum."""
+    halo columns, 128 bytes of channels (64 bf16, 32 f32) at a time, the
+    band picked by the kernel's index arithmetic; the logits stored from
+    the band by its ``dy * window + dx`` arithmetic. bf16 (default): the
+    unnormalised weights rounded to bf16, divided by their f32 sum, out and
+    logits rounded to bf16. ``tf32``: every product in 3xTF32, the weights
+    f32. Returns (out, logits)."""
     b, h, w, c = q.shape
     plan = _mma_plan(window)
     r, (hh, hw) = window // 2, plan["halo"]
     th, tw = _MMA_TILE
     ty, tx = -(-h // th), -(-w // tw)
-    kp = torch.nn.functional.pad(k.float(), (0, 0, r, r + tx * tw - w,
+    chunk = 32 if tf32 else 64
+    cp = -(-c // chunk) * chunk                 # zero channels past C
+    mm = _mm_3xtf32 if tf32 else torch.matmul
+    kp = torch.nn.functional.pad(k.float(), (0, cp - c, r, r + tx * tw - w,
                                              r, r + ty * th - h))
-    qp = torch.nn.functional.pad(q.float(), (0, 0, 0, tx * tw - w,
+    qp = torch.nn.functional.pad(q.float(), (0, cp - c, 0, tx * tw - w,
                                              0, ty * th - h))
-    out = torch.zeros(b, ty * th, tx * tw, c)
+    out = torch.zeros(b, ty * th, tx * tw, cp)
+    logits = torch.zeros(b, ty * th, tx * tw, window * window)
     i = torch.arange(16)[:, None]
     col = torch.arange(plan["cols_pad"])[None]
     dy, dx = col // hw - i // 8, col % hw - i % 8
     band = (col < plan["cols"]) & (dy >= 0) & (dy <= 2 * r) \
         & (dx >= 0) & (dx <= 2 * r)
+    lidx = dy * window + dx
+    # each row's band holds each neighbour exactly once
+    for row in range(16):
+        assert torch.equal(lidx[row][band[row]].sort().values,
+                           torch.arange(window * window))
+    brow, bcol = band.nonzero(as_tuple=True)
     for n in range(b):
         for y0 in range(0, ty * th, th):
             for x0 in range(0, tx * tw, tw):
-                halo = kp[n, y0:y0 + hh, x0:x0 + hw].reshape(-1, c)
+                halo = kp[n, y0:y0 + hh, x0:x0 + hw].reshape(-1, cp)
                 halo = torch.cat([halo, halo.new_zeros(
-                    plan["cols_pad"] - plan["cols"], c)])
+                    plan["cols_pad"] - plan["cols"], cp)])
                 for wp in range(th // 2):
                     cols = halo[2 * wp * hw:2 * wp * hw + plan["cols_pad"]]
-                    rows = qp[n, y0 + 2 * wp:y0 + 2 * wp + 2, x0:x0 + tw]
-                    s = rows.reshape(16, c) @ cols.T
+                    rows = qp[n, y0 + 2 * wp:y0 + 2 * wp + 2,
+                              x0:x0 + tw].reshape(16, cp)
+                    s = sum(mm(rows[:, c0:c0 + chunk],
+                               cols[:, c0:c0 + chunk].T)
+                            for c0 in range(0, cp, chunk))
+                    lg = torch.zeros(16, window * window)
+                    lg[brow, lidx[brow, bcol]] = s[brow, bcol] / c ** 0.5
                     s = s.masked_fill(~band, -torch.inf)
                     p = torch.exp((s - s.amax(1, keepdim=True)) / c ** 0.5)
-                    p = p.bfloat16().float()
-                    o = (p @ cols) / p.sum(1, keepdim=True)
-                    out[n, y0 + 2 * wp:y0 + 2 * wp + 2, x0:x0 + tw] = \
-                        o.reshape(2, tw, c)
-    return (out[:, :h, :w] * mask.float()).bfloat16()
+                    if not tf32:
+                        p = p.bfloat16().float()
+                    o = torch.cat([mm(p, cols[:, c0:c0 + chunk])
+                                   for c0 in range(0, cp, chunk)], 1)
+                    o = o / p.sum(1, keepdim=True)
+                    ys = slice(y0 + 2 * wp, y0 + 2 * wp + 2)
+                    out[n, ys, x0:x0 + tw] = o.reshape(2, tw, cp)
+                    logits[n, ys, x0:x0 + tw] = lg.reshape(2, tw, -1)
+    m = mask.float()
+    out, logits = out[:, :h, :w, :c] * m, logits[:, :h, :w] * m
+    return (out, logits) if tf32 else (out.bfloat16(), logits.bfloat16())
 
 
 @pytest.mark.parametrize("shape,window", [((2, 13, 21, 24), 3),
@@ -158,9 +207,79 @@ def test_fam_mma_tiling_matches_jax(rng, shape, window):
     q, k, mask = (torch.from_numpy(a).to(tb) for a in (q, k, mask))
     want, _ = fam_xla(*(jnp.asarray(t.float().numpy()) for t in (q, k, mask)),
                       window)
-    got = _mma_tiling(q, k, mask, window)
+    got, _ = _mma_tiling(q, k, mask, window)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide", "ties", "exact"])
+def test_tf32_split(rng, kind):
+    """big + small gives x back within 2^-21 relative (the kernel's 3xTF32
+    operands: big within half a tf32 ulp, 2^-11, and small cut to tf32),
+    both tf32 (low 13 bits zero), big the nearest tf32 with ties away from
+    zero; over normal draws, magnitudes 1e-30..1e30, exact ties and values
+    tf32 holds exactly (zeros, powers of two)."""
+    if kind == "normal":
+        x = rng.randn(4096).astype(np.float32)
+    elif kind == "wide":
+        x = (np.sign(rng.randn(4096)) * 10.0 ** rng.uniform(-30, 30, 4096)
+             ).astype(np.float32)
+    elif kind == "ties":
+        bits = (rng.randint(0x01000000, 0x7E000000, 4096).astype(np.uint32)
+                & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+        bits[::2] |= np.uint32(0x80000000)
+        x = bits.view(np.float32)
+    else:
+        x = np.array([0.0, -0.0, 1.0, -1.0, 2.0 ** -100, -(2.0 ** 100),
+                      1.5, 3.0 * 2.0 ** -20, 65504.0], np.float32)
+    big, small = _tf32_split(torch.from_numpy(x))
+    for v in (big, small):
+        assert not (v.view(torch.int32) & 0x1FFF).any()
+    xd = torch.from_numpy(x).double()
+    err = (big.double() + small.double() - xd).abs()
+    assert (err <= 2.0 ** -21 * xd.abs()).all()
+    assert ((big.double() - xd).abs() <= 2.0 ** -11 * xd.abs()).all()
+    if kind == "ties":      # away from zero: |big| > |x|, same sign
+        assert (big.double().abs() > xd.abs()).all()
+        assert (torch.sign(big) == torch.sign(torch.from_numpy(x))).all()
+    if kind == "exact":
+        assert torch.equal(big, torch.from_numpy(x)) and not small.any()
+
+
+@pytest.mark.parametrize("shape,window", [((2, 13, 21, 24), 3),
+                                          ((1, 16, 24, 32), 7),
+                                          ((1, 11, 9, 8), 9),
+                                          ((1, 9, 10, 300), 5)])
+def test_fam_tf32_tiling_matches_jax(rng, shape, window):
+    """The f32 kernels' tiling (3xTF32 products, f32 weights, 32-channel
+    chunks, the last one ragged at C = 300) and their logits' band ->
+    ``dy * window + dx`` arithmetic against the JAX formulation at ragged
+    shapes, out and logits, at the f32 entries' 1e-5."""
+    q, k, mask = _inputs(rng, shape)
+    want_out, want_lg = fam_xla(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(mask), window)
+    got_out, got_lg = _mma_tiling(*(torch.from_numpy(a) for a in (q, k, mask)),
+                                  window, tf32=True)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
+                               atol=1e-5)
+    np.testing.assert_allclose(got_lg.numpy(), np.asarray(want_lg), atol=1e-5)
+
+
+@pytest.mark.parametrize("mxu", [False, True], ids=["C_fam_kernel",
+                                                    "D_fam_kernel_mxu"])
+def test_fam_tf32_tiling_matches_pallas_training_kernels(rng, mxu):
+    """The same emulation against the two logits-writing Pallas kernels the
+    f32 entries replace, in interpret mode (H, W multiples of 8 there);
+    C = 40 leaves a ragged second chunk."""
+    q, k, mask = _inputs(rng, (1, 16, 24, 40))
+    want_out, want_lg = _fam_pallas_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(mask), 7,
+        interpret=True, mxu=mxu, need_logits=True)
+    got_out, got_lg = _mma_tiling(*(torch.from_numpy(a) for a in (q, k, mask)),
+                                  7, tf32=True)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
+                               atol=1e-5)
+    np.testing.assert_allclose(got_lg.numpy(), np.asarray(want_lg), atol=1e-5)
 
 
 @pytest.mark.parametrize("wrapper", ["fam_window", "fam_window_logits"])
