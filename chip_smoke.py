@@ -21,22 +21,32 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    the encodes (EDT) and decodes (FAM); known trimap pixels pasted
    exactly; the uint8 mattes against the plain versions' within
    BF16_STREAM (calibrated below); steady-state times and memory;
-6. train_kernels: both FAM entries against the plain version at the
-   training path's shapes (f32 to 1e-5, bf16 to 2e-2), the autograd
-   Function's dq, dk against the plain version's autograd, and its times;
-   the EDT row pass bit-exact at the inputs make_trimap gives it in the
-   train and validation steps, with its times at the train step's;
-7. train_f32: the video trainer at full width and depth (vmn_fba, B=1,
+6. the evaluation tools, on files in a temporary folder under build/:
+   pred_test's predict_test_folder in bf16 on 8 PNG frames of 1080x1920
+   (launches, pasted pixels, mattes within BF16_STREAM of the plain
+   versions', fps end to end beside the step's, the host pipeline's time
+   per frame, the PNG codec); pred_vmn on a fake VideoMatting108 clip of 4
+   frames (f32, 1088x1920, B = 1, S = 3, medium trimaps; launches, finite
+   losses, the PNGs written, the sweep's phases); calc_metric on its
+   output on the card and on the CPU (every number within rtol 1e-5);
+7. train_kernels: both FAM entries against the plain version at the
+   training path's and pred_vmn's shapes (f32 to 1e-5, bf16 to 2e-2), the
+   autograd Function's dq, dk against the plain version's autograd, and
+   its times; the EDT row pass bit-exact at the inputs make_trimap gives it
+   in the train and validation steps and in pred_vmn, with its times at
+   the train step's and pred_vmn's;
+8. train_f32: the video trainer at full width and depth (vmn_fba, B=1,
    S=5, 512x512, Adam, poly lr 1e-4, weight decay 1e-4, synthetic seeded
    clips): one step through the kernels against one through the plain
    versions (losses, gradients, launch counts), five more steps (finite
    losses, ms, peak memory) and one validation step (B=6, S=3, 544x960).
 
-The line before the last lists every kernel row (name, route, source,
-the TPU kernel it replaces, launches on its path, error, ms, plain ms,
-bound); the last line is ``{"ok": true, "device": {...}}``; any failure
-exits non-zero before it. ``--profile FILE`` adds torch.profiler
-breakdowns of two bf16 stream steps and two train steps, their tables
+The line before the last lists every kernel row on every path that runs
+it (name, route, source, the TPU kernel it replaces, the path, launches
+on that path, error, ms, plain ms, bound); the last line is
+``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
+``--profile FILE`` adds torch.profiler breakdowns of two bf16 stream
+steps, one pred_vmn evaluation step and two train steps, their tables
 written to FILE.
 """
 from __future__ import annotations
@@ -45,13 +55,16 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import unittest.mock as mock
+from pathlib import Path
 
 import numpy as np
 import torch
 
 H, W, WINDOW = 1088, 1920, 7
+FRAME_HW = (1080, 1920)                       # the tools' frames, padded to H
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 # The bf16 stream's uint8 mattes, kernels against plain versions (12 frames,
 # 1088x1920, seed 0). Baseline: the earlier FAM kernel, which kept its
@@ -139,16 +152,26 @@ def sass_counts(lib) -> dict[str, int]:
     return dict(zip(names, counts.values()))
 
 
+def plain_kernels(fam, edt_kernel):
+    """A context in which both kernels' plain versions stand in for them."""
+    import contextlib
+
+    def plain_fam(q, k, mask, window, need_logits=False):
+        out, lg = fam.fam_attention_ref(q, k, mask, window)
+        return out, (lg if need_logits else None)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(fam, "fam_attention", plain_fam))
+    stack.enter_context(mock.patch.object(edt_kernel, "edt_row_pass",
+                                          edt_kernel.edt_row_pass_ref))
+    return stack
+
+
 def run_plain_stream(sp, frames, fam, edt_kernel, cuda_build):
     """The stream through the plain versions of both kernels; it must
     launch none."""
-    def plain_fam(q, k, mask, window, need_logits=False):
-        return fam.fam_attention_ref(q, k, mask, window)[0], None
-
     cuda_build.LAUNCHES.clear()
-    with mock.patch.object(fam, "fam_attention", plain_fam), \
-            mock.patch.object(edt_kernel, "edt_row_pass",
-                              edt_kernel.edt_row_pass_ref):
+    with plain_kernels(fam, edt_kernel):
         outs = run_stream(sp, frames)
     if sum(cuda_build.LAUNCHES.values()):
         fail(f"a plain run launched kernels: {dict(cuda_build.LAUNCHES)}")
@@ -237,18 +260,22 @@ def check_edt(edt_kernel, distance, tri):
 
 
 def check_edt_train(edt_kernel):
-    """Kernel A at the inputs make_trimap gives it on the training path:
-    the column pass of the train batch's bg/fg planes ([B*S*2*512, 512]),
-    timed, and of the validation batch's ([B*S*2*544, 960]), captured
-    from preprocess with the plain row pass standing in. Returns the
-    train shape's times."""
+    """Kernel A at the inputs make_trimap gives it: the column pass of the
+    train batch's bg/fg planes ([B*S*2*512, 512]), timed, of the validation
+    batch's ([B*S*2*544, 960]) and of a pred_vmn sample's at the medium
+    trimap width ([1*3*2*1088, 1920]), timed, captured from preprocess with
+    the plain row pass standing in. Returns the times by path."""
+    from tcvom_tpu_torch.infer.predict import TRIMAP_DILATION
     from tcvom_tpu_torch.models.full_model import (TaskConfig, draw_radius,
                                                    preprocess)
 
-    cfg = TaskConfig(model="vmn_fba", agg_window=WINDOW)
-    res = None
-    for b, s, h, w, seed, path in ((1, 5, 512, 512, 5, "train"),
-                                   (6, 3, 544, 960, 6, "val")):
+    res = {}
+    for b, s, h, w, seed, path, dil in (
+            (1, 5, 512, 512, 5, "train", None),
+            (6, 3, 544, 960, 6, "val", None),
+            (1, 3, H, W, 8, "pred_vmn", TRIMAP_DILATION["medium"])):
+        cfg = TaskConfig(model="vmn_fba", agg_window=WINDOW,
+                         dilate_radius=dil)
         clip = make_clip(b, s, h, w, seed)
         seen = []
 
@@ -261,8 +288,8 @@ def check_edt_train(edt_kernel):
                        draw_radius(b, torch.Generator().manual_seed(3)))
         if len(seen) != 1:
             fail(f"preprocess at {[b, s, h, w]} ran {len(seen)} row passes")
-        res = hold_edt(edt_kernel, *seen[0], timed=path == "train",
-                       path=path) or res
+        res[path] = hold_edt(edt_kernel, *seen[0], timed=path != "val",
+                             path=path)
         del clip, seen
     return res
 
@@ -340,8 +367,9 @@ def check_fam(fam, fam_kernel):
 def check_fam_logits(fam, fam_kernel):
     """The logits-writing entry (replacing TPU kernels C and D) at the
     training step's [prev; next] batch (B*(S-2)*2 = 6 at 64x64), the
-    validation step's (12 at 68x120), timed, and a narrow shape in f32 and
-    bf16, the inference entry held at the same inputs; then the autograd
+    validation step's (12 at 68x120), a pred_vmn batch's (2 at 136x240),
+    timed, and a narrow shape in f32 and bf16, the inference entry held at
+    the same inputs; then the autograd
     Function's dq, dk against the plain version's autograd at the training
     shape, with random d_out and d_logits. Returns the times at the
     training and validation shapes, by shape."""
@@ -349,6 +377,7 @@ def check_fam_logits(fam, fam_kernel):
     res = {}
     for shape, window, dtype in (((6, 64, 64, 256), WINDOW, torch.float32),
                                  ((12, 68, 120, 256), WINDOW, torch.float32),
+                                 ((2, 136, 240, 256), WINDOW, torch.float32),
                                  ((2, 16, 24, 32), 3, torch.float32),
                                  ((2, 16, 24, 32), 3, torch.bfloat16)):
         (q, k, m), errs = hold_fam(fam, fam_kernel, rng, shape, window, dtype)
@@ -405,6 +434,163 @@ def make_clip(b: int, s: int, h: int, w: int, seed: int) -> dict:
             (("a", a), ("fg", fg), ("bg", bg))}
 
 
+def pred_test_phase(model, tmp, step_ms, fam, edt_kernel, cuda_build):
+    """The wild-folder pipeline (tools/pred_test.py's predict_test_folder) in
+    bf16 on 8 frames of 1080x1920 PNGs written by the port's own writer:
+    through the kernels (launches counted), through the plain versions
+    (the mattes held within BF16_STREAM), and through the kernels again,
+    timed end to end beside the stream's own step rate, once with each PNG
+    codec this machine has (cv2 if it imports, the port's zlib codec
+    always). Returns the counted run's launches."""
+    from tcvom_tpu_torch.infer.predict import predict_test_folder
+    from tcvom_tpu_torch.models.full_model import TaskConfig
+    from tcvom_tpu_torch.tools.make_fake_dataset import make_wild_folder
+    from tcvom_tpu_torch.utils import imageio
+
+    n, hw = 8, FRAME_HW
+    src = str(tmp / "wild")
+    make_wild_folder(src, frames=n, hw=hw, seed=7)
+    cfg = TaskConfig(model="vmn_fba", agg_window=WINDOW)
+
+    def run(out):
+        t0 = time.perf_counter()
+        stats = predict_test_folder(model, cfg, src, str(tmp / out),
+                                    dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mattes = [imageio.imread(str(tmp / out / f"{i:05d}_alpha.png"),
+                                 imageio.IMREAD_GRAYSCALE) for i in range(n)]
+        return stats, wall, mattes
+
+    cuda_build.LAUNCHES.clear()
+    _, first_wall, got = run("kernels")
+    counts = dict(cuda_build.LAUNCHES)
+    if counts != {"edt_row": n, "fam_window": n}:
+        fail(f"pred_test launch counts {counts}, want {n} of each")
+    for i, matte in enumerate(got):
+        tri = imageio.imread(f"{src}/{i:05d}_trimap.png",
+                             imageio.IMREAD_GRAYSCALE)
+        known = (tri == 0) | (tri == 255)
+        if matte.shape != hw or matte.dtype != np.uint8:
+            fail(f"pred_test matte {matte.shape} {matte.dtype}")
+        if not np.array_equal(matte[known], tri[known]):
+            fail(f"pred_test matte {i}: known pixels differ from the trimap")
+    with plain_kernels(fam, edt_kernel):
+        cuda_build.LAUNCHES.clear()
+        _, _, want = run("plain")
+        if sum(cuda_build.LAUNCHES.values()):
+            fail(f"a plain run launched kernels: {dict(cuda_build.LAUNCHES)}")
+    diff, same = hold_stream("pred_test", [torch.from_numpy(m) for m in want],
+                             [torch.from_numpy(m) for m in got])
+    if diff > BF16_STREAM["max_level_diff"] or \
+            same < BF16_STREAM["identical_share"]:
+        fail(f"pred_test mattes: kernels {diff} levels off plain at most, "
+             f"{same:.6f} identical; allowed {BF16_STREAM}")
+    for codec in ("cv2", "zlib") if imageio.cv2 else ("zlib",):
+        with mock.patch.object(imageio, "cv2",
+                               imageio.cv2 if codec == "cv2" else None):
+            stats, wall, _ = run(f"timed_{codec}")
+        emit(phase="pred_test", frames=n, shape=list(hw), codec=codec,
+             launches=counts, first_run_s=first_wall, wall_s=wall,
+             fps_end_to_end=n / wall, fps_step=1e3 / step_ms,
+             ms_per_frame={k: v * 1e3 / n for k, v in stats.items()
+                           if k != "frames"})
+    return counts
+
+
+def pred_vmn_phase(model, tmp, cuda_build, profile_path=None):
+    """The VideoMatting108 validation sweep (tools/pred_vmn.py) on a fake
+    tree, one val clip of 4 frames at 1080x1920, from a checkpoint of
+    ``model``'s weights: f32, B = 1, S = 3, 1088x1920, medium trimaps; then
+    its parts apart: reading one sample, and the evaluation step on it
+    (and a profile of one step with ``profile_path``). Returns (launches,
+    the tree, the predictions' folder)."""
+    from tcvom_tpu_torch.data.vmd import VideoMattingDataset
+    from tcvom_tpu_torch.infer.predict import (TRIMAP_DILATION,
+                                               make_vmd_eval_step)
+    from tcvom_tpu_torch.models.full_model import TaskConfig
+    from tcvom_tpu_torch.tools import pred_vmn
+    from tcvom_tpu_torch.tools.make_fake_dataset import make
+    from tcvom_tpu_torch.utils.checkpoint import save_weights
+
+    root, save, ckpt = tmp / "vmd", tmp / "pred_vmn", tmp / "vmn_fba.pth"
+    t0 = time.perf_counter()
+    make(str(root), frames=4, hw=FRAME_HW, seed=0)
+    save_weights(model, str(ckpt))
+    setup_s = time.perf_counter() - t0
+    cuda_build.LAUNCHES.clear()
+    t0, sweep = time.perf_counter(), {}
+    losses = pred_vmn.main(["--model", "fba", "--data", str(root), "--load",
+                            str(ckpt), "--trimap", "medium", "--save",
+                            str(save), "--agg_window", str(WINDOW),
+                            "--batch", "1", "--n_threads", "2"], sweep)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    counts = dict(cuda_build.LAUNCHES)
+    written = sorted(p.name for p in (save / "clip_b").iterdir())
+
+    dataset = VideoMattingDataset(str(root), (H, W), "val",
+                                  precomputed_val=str(root), sample_length=3,
+                                  no_flow=True)
+    t0 = time.perf_counter()
+    sample = {k: v[None] for k, v in dataset[1].items()}
+    read_ms = (time.perf_counter() - t0) * 1e3
+    step = make_vmd_eval_step(model, TaskConfig(
+        model="vmn_fba", agg_window=WINDOW,
+        dilate_radius=TRIMAP_DILATION["medium"]))
+    step_ms = host_ms(lambda: step(sample), 3)
+    emit(phase="pred_vmn", samples=4, shape=[1, 3, H, W], launches=counts,
+         losses=losses, setup_s=setup_s, sweep_s=sweep_s,
+         s_per_sample=sweep_s / 4, sweep_phases_s=sweep,
+         written=len(written), sample_read_ms=read_ms, eval_step_ms=step_ms)
+    if profile_path:
+        profile_steps(lambda: step(sample), 1, profile_path,
+                      "profile_pred_vmn")
+    if counts != {"edt_row": 4, "fam_window_logits": 4}:
+        fail(f"pred_vmn launch counts {counts}, want 4 of each")
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f"pred_vmn losses {losses}")
+    if written != [f"{i:05d}_{k}.png" for i in range(4)
+                   for k in ("pred", "tri")]:
+        fail(f"pred_vmn wrote {written}")
+    return counts, root, save
+
+
+def calc_metric_phase(root, save):
+    """tools/calc_metric.py on pred_vmn's output, on the card and on the
+    CPU: every number of metric.json within rtol 1e-5."""
+    from tcvom_tpu_torch.tools import calc_metric
+
+    res, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = calc_metric.main(["--pred", str(save), "--data", str(root),
+                                     "--device", dev, "--output",
+                                     str(save / f"metric_{dev}.json")])
+        secs[dev] = time.perf_counter() - t0
+    worst = 0.0
+
+    def walk(a, b):
+        nonlocal worst
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                fail(f"calc_metric keys differ: {set(a) ^ set(b)}")
+            for k in a:
+                walk(a[k], b[k])
+        else:
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+
+    walk(res["cuda"], res["cpu"])
+    pairs = len(res["cuda"]["all"]["clip_b"]["all"])
+    emit(phase="calc_metric", pairs=pairs, avg=res["cuda"]["avg"],
+         s_per_pair={d: t / pairs for d, t in secs.items()},
+         max_rel_diff_cuda_cpu=worst)
+    if pairs != 4 or worst > 1e-5:
+        fail(f"calc_metric: {pairs} pairs, card vs CPU rel diff {worst}")
+    if not all(np.isfinite(v) for v in res["cuda"]["avg"].values()):
+        fail(f"calc_metric values {res['cuda']['avg']}")
+
+
 def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
     """The video trainer at full width and depth: a kernel step against a
     plain step from the same weights, batch and radius; five more kernel
@@ -420,14 +606,8 @@ def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
     batch = make_clip(1, 5, 512, 512, seed=5)
     radius = draw_radius(1, torch.Generator().manual_seed(3))
 
-    def plain_fam(q, k, mask, window, need_logits=False):
-        out, lg = fam.fam_attention_ref(q, k, mask, window)
-        return out, (lg if need_logits else None)
-
     def plain_step(state, batch):
-        with mock.patch.object(fam, "fam_attention", plain_fam), \
-                mock.patch.object(edt_kernel, "edt_row_pass",
-                                  edt_kernel.edt_row_pass_ref):
+        with plain_kernels(fam, edt_kernel):
             _, metrics = trainer.train_step(state, batch, radius)
         torch.cuda.synchronize()
         return metrics
@@ -510,8 +690,9 @@ def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
-                    help="profile two bf16 stream steps and two train "
-                         "steps; write the tables to FILE")
+                    help="profile two bf16 stream steps, one pred_vmn "
+                         "evaluation step and two train steps; write the "
+                         "tables to FILE")
     args = ap.parse_args()
 
     # -- 1. device -----------------------------------------------------------
@@ -620,14 +801,27 @@ def main():
     if args.profile:
         open(args.profile, "w").close()
         profile_steps(one_step, 2, args.profile, "profile_bf16")
-    del sp, model, frames, state, f_prev, f_cur, f_next
+    del sp, frames, state, f_prev, f_cur, f_next
     torch.cuda.empty_cache()
 
-    # -- 6. training kernels against their plain versions -----------------------
+    # -- 6. the evaluation tools: pred_test (bf16), pred_vmn (f32), calc_metric
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        pt_counts = pred_test_phase(model, tmp, step_ms, fam, edt_kernel,
+                                    cuda_build)
+        vmn_counts, root, save = pred_vmn_phase(model, tmp, cuda_build,
+                                                args.profile)
+        del model
+        torch.cuda.empty_cache()
+        calc_metric_phase(root, save)
+
+    # -- 7. training and pred_vmn kernels against their plain versions ---------
     logits_res = check_fam_logits(fam, fam_kernel)
     edt_train_res = check_edt_train(edt_kernel)
 
-    # -- 7. the video trainer, f32, full width and depth -------------------------
+    # -- 8. the video trainer, f32, full width and depth -------------------------
     train_counts, val_counts = train_phase(fam, edt_kernel, cuda_build,
                                            args.profile)
 
@@ -638,23 +832,32 @@ def main():
                replaces="tcvom_tpu/ops/edt_pallas.py:39", library_ms=None)
     famk = dict(route="cuda", source="tcvom_tpu_torch/csrc/fam_window.cu",
                 library_ms=None)
+    fam_b = dict(famk, name="fam_window",
+                 replaces="tcvom_tpu/ops/fam_pallas.py:190")
+    logits_c = dict(famk, name="fam_window_logits",
+                    replaces="tcvom_tpu/ops/fam_pallas.py:38")
     kernels = [
-        dict(edt, launches=counts["edt_row"], **edt_res),
-        dict(edt, launches=train_counts["edt_row"], **edt_train_res),
-        dict(famk, name="fam_window",
-             replaces="tcvom_tpu/ops/fam_pallas.py:190",
-             launches=counts["fam_window"], **fam_res[torch.bfloat16]),
-        dict(famk, name="fam_window",
-             replaces="tcvom_tpu/ops/fam_pallas.py:190",
-             launches=f32_counts["fam_window"], **fam_res[torch.float32]),
-        dict(famk, name="fam_window_logits",
-             replaces="tcvom_tpu/ops/fam_pallas.py:38",
+        dict(edt, path="stream_bf16", launches=counts["edt_row"], **edt_res),
+        dict(edt, path="pred_test", launches=pt_counts["edt_row"], **edt_res),
+        dict(edt, path="train", launches=train_counts["edt_row"],
+             **edt_train_res["train"]),
+        dict(edt, path="pred_vmn", launches=vmn_counts["edt_row"],
+             **edt_train_res["pred_vmn"]),
+        dict(fam_b, path="stream_bf16", launches=counts["fam_window"],
+             **fam_res[torch.bfloat16]),
+        dict(fam_b, path="pred_test", launches=pt_counts["fam_window"],
+             **fam_res[torch.bfloat16]),
+        dict(fam_b, path="stream_f32", launches=f32_counts["fam_window"],
+             **fam_res[torch.float32]),
+        dict(logits_c, path="train",
              launches=train_counts["fam_window_logits"],
              **logits_res[(6, 64, 64, 256)]),
-        dict(famk, name="fam_window_logits",
-             replaces="tcvom_tpu/ops/fam_pallas.py:97",
+        dict(logits_c, path="val", replaces="tcvom_tpu/ops/fam_pallas.py:97",
              launches=val_counts["fam_window_logits"],
              **logits_res[(12, 68, 120, 256)]),
+        dict(logits_c, path="pred_vmn", replaces="tcvom_tpu/ops/fam_pallas.py:97",
+             launches=vmn_counts["fam_window_logits"],
+             **logits_res[(2, 136, 240, 256)]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

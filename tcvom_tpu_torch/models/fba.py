@@ -158,3 +158,18 @@ class FBADecoder(nn.Module):
         B = torch.sigmoid(out[:, 4:7])
         alpha, F_, B = fba_fusion(alpha, at_least_f32(img), F_, B)
         return torch.cat([alpha, F_, B], dim=1)
+
+
+class FBA(nn.Module):
+    """Single-frame FBA matting model (reference models.py:7-30): the
+    encoder and the ``full`` decoder. ``forward(x, extras)``: ``x`` the
+    11-channel input, ``extras`` (raw scaled image, 2-channel trimap), all
+    NCHW; returns (alpha, F, B) ``[N, 7, H, W]``."""
+
+    def __init__(self, layers=(3, 4, 6, 3)):
+        super().__init__()
+        self.encoder = FBAEncoder(layers=tuple(layers))
+        self.decoder = FBADecoder()
+
+    def forward(self, x: torch.Tensor, extras) -> torch.Tensor:
+        return self.decoder(dict(self.encoder(x), extras=extras))

@@ -1,5 +1,6 @@
 """Task configuration, preprocessing, trimap synthesis, the loss stacks and
-the training forward drivers (port of tcvom_tpu/models/full_model.py).
+the training and evaluation forward passes (port of
+tcvom_tpu/models/full_model.py).
 
 Tensors here keep the JAX package's layout: ``[B, H, W, C]`` (eval) or
 ``[B, S, H, W, C]`` (clips), f32 in [0, 255], BGR. The model itself is
@@ -273,20 +274,43 @@ def _run_vmn(model, pre, cfg: TaskConfig):
     return _cl(preds), attb, attf, _cl(small)
 
 
+def _run_single(model, pre, cfg: TaskConfig, c: int) -> torch.Tensor:
+    """A single-frame model on frame ``c`` of the preprocessed clip; its
+    prediction ``[B, H, W, Cout]`` channels-last."""
+    if cfg.method != "fba":
+        raise NotImplementedError(
+            f"{cfg.model!r} is not ported yet: ROADMAP.md Queue 1 item 10")
+    inputs = torch.cat([pre["imgs"][:, c], pre["tris"][:, c]], dim=-1)
+    extras = (pre["scaled_imgs"][:, c].permute(0, 3, 1, 2),
+              pre["tris"][:, c, ..., -2:].permute(0, 3, 1, 2))
+    return model(inputs.permute(0, 3, 1, 2), extras).permute(0, 2, 3, 1)
+
+
+def _center_only(pred_c: torch.Tensor, s: int, c: int) -> torch.Tensor:
+    """``[B, S, H, W, C]`` holding ``pred_c`` at frame ``c``, zero
+    elsewhere."""
+    preds = pred_c.new_zeros((pred_c.shape[0], s) + pred_c.shape[1:])
+    preds[:, c] = pred_c
+    return preds
+
+
 def forward_single(model, batch: dict, cfg: TaskConfig, radius=None):
-    """FullModel forward (models/model.py:199-246), VMN branch: the
-    TAM-pretrain configuration (pretrain_ddp.py) runs the temporal module
+    """FullModel forward (models/model.py:199-246). A single-frame model
+    runs the center frame only and is supervised there; a VMN model (the
+    TAM-pretrain configuration, pretrain_ddp.py) runs the temporal module
     over all frames and supervises frames 1..S-2 without the video-only
     L_att and L_dt. Returns (losses, aux)."""
-    if not cfg.is_vmn:
-        raise NotImplementedError(
-            "single-frame backbones are not ported yet: ROADMAP.md Queue 1 "
-            "items 10-11")
     s = batch["a"].shape[1]
     pre = preprocess(batch["a"], batch["fg"], batch["bg"], cfg, radius)
-    preds, _, _, _ = _run_vmn(model, pre, cfg)
+    if cfg.is_vmn:
+        preds, _, _, _ = _run_vmn(model, pre, cfg)
+        start, end = 1, s - 1
+    else:
+        c = s // 2
+        preds = _center_only(_run_single(model, pre, cfg, c), s, c)
+        start, end = c, c + 1
     l1, l2, l3, alphas, comps, fs, bs = fba_single_image_losses(
-        cfg, preds, pre, 1, s - 1)
+        cfg, preds, pre, start, end)
     return ({"L1": l1, "L2": l2, "L3": l3},
             dict(pre=pre, alphas=alphas, comps=comps, Fs=fs, Bs=bs))
 
@@ -306,3 +330,45 @@ def forward_vmd(model, batch: dict, cfg: TaskConfig, radius=None):
                          fs, bs, pre["scaled_fgs"], pre["scaled_bgs"])
     losses = {"L1": l1, "L2": l2, "L3": l3, "L_dt": l_dt, "L_att": l_att}
     return losses, dict(pre=pre, alphas=alphas, comps=comps, Fs=fs, Bs=bs)
+
+
+def forward_eval(model, imgs: torch.Tensor, tris: torch.Tensor,
+                 cfg: TaskConfig):
+    """EvalModel forward from real trimaps (models/model.py:389-453).
+    ``imgs``: ``[B, S, H, W, 3]`` BGR, ``tris``: ``[B, S, H, W, 1]``, f32
+    0..255. Returns alphas ``[B, S, H, W, 1]`` (and F, B for FBA) with the
+    trimap's values pasted outside the unknown region; the frames the model
+    does not predict (the clip's ends for VMN, all but the center for a
+    single-frame model) are zero."""
+    s = imgs.shape[1]
+    pre = preprocess_eval(imgs, tris, cfg)
+    if cfg.is_vmn:
+        preds = _run_vmn(model, pre, cfg)[0]
+        start, end = 1, s - 1
+    else:
+        c = s // 2
+        preds = _center_only(_run_single(model, pre, cfg, c), s, c)
+        start, end = c, c + 1
+    mask = pre["trimasks"] > 0.5
+    gt_tri = tris * IMG_SCALE
+    fba = cfg.method == "fba"
+    outs_a, outs_f, outs_b = [], [], []
+    for i in range(s):
+        if start <= i < end:
+            outs_a.append(torch.where(mask[:, i], preds[:, i, ..., 0:1],
+                                      gt_tri[:, i]))
+            if fba:
+                img = pre["scaled_imgs"][:, i]
+                outs_f.append(torch.where(mask[:, i], preds[:, i, ..., 1:4],
+                                          img))
+                outs_b.append(torch.where(mask[:, i], preds[:, i, ..., 4:7],
+                                          img))
+        else:
+            outs_a.append(torch.zeros_like(gt_tri[:, i]))
+            if fba:
+                outs_f.append(torch.zeros_like(pre["scaled_imgs"][:, i]))
+                outs_b.append(outs_f[-1])
+    alphas = torch.stack(outs_a, 1)
+    if fba:
+        return alphas, torch.stack(outs_f, 1), torch.stack(outs_b, 1)
+    return alphas

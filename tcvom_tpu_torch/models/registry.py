@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from tcvom_tpu_torch.models.fba import FBADecoder, FBAEncoder
+from tcvom_tpu_torch.models.fba import FBA, FBADecoder, FBAEncoder
 from tcvom_tpu_torch.models.layers import WSConv2d
 from tcvom_tpu_torch.models.vmn import VMN
 from tcvom_tpu_torch.utils.device import resolve_device
@@ -42,20 +42,24 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(model_name: str, agg_window: int = 7, agg_reduction: int = 1,
                 layers=(3, 4, 6, 3), device: str | torch.device = "cuda",
                 generator: torch.Generator | None = None,
-                freeze_backbone: bool = False) -> VMN:
+                freeze_backbone: bool = False) -> nn.Module:
     """Construct a model with random weights drawn from ``generator``
     (seed 0 if None), in eval mode on ``device`` (``.train()`` switches it,
     as the trainer does; FBA has no layer that depends on the mode).
-    ``layers`` sets the encoder's blocks per stage (depth only; widths are
-    the published ones); ``freeze_backbone`` runs the encoder and the
-    extract half without gradient."""
+    ``'vmn_fba'`` is the VMN (window ``agg_window``), ``'fba'`` the
+    single-frame model. ``layers`` sets the encoder's blocks per stage
+    (depth only; widths are the published ones); ``freeze_backbone`` runs
+    the encoder and the extract half of a VMN without gradient."""
     dev = resolve_device(device)
-    if model_name != "vmn_fba":
+    if model_name == "vmn_fba":
+        model = VMN(FBAEncoder(layers=tuple(layers)), FBADecoder(),
+                    FAM_CHANNELS["fba"], agg_window, agg_reduction,
+                    freeze_backbone)
+    elif model_name == "fba":
+        model = FBA(layers)
+    else:
         raise NotImplementedError(
             f"{model_name!r} is not ported yet: ROADMAP.md Queue 1 item 10 "
-            "(the other backbones) and item 11 (single-frame training)")
-    model = VMN(FBAEncoder(layers=tuple(layers)), FBADecoder(),
-                FAM_CHANNELS["fba"], agg_window, agg_reduction,
-                freeze_backbone)
+            "(the other backbones)")
     init_weights(model, generator or torch.Generator().manual_seed(0))
     return model.to(dev).eval()

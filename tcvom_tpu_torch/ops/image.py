@@ -5,9 +5,10 @@ were written to equal torch's own operators, so here they are those
 operators: ``F.interpolate``, ``F.max_pool2d`` and ``F.adaptive_avg_pool2d``.
 
 The functions of the training stack (:func:`avg_pool`, :func:`unfold`,
-:func:`image_gradient`, :func:`dilate_by_radius`) take channels-last
+:func:`image_gradient`, :func:`dilate_by_radius`) and of the metrics
+(:func:`coords_grid`, :func:`grid_sample`) take channels-last
 ``[..., H, W, C]`` tensors with any leading dims, as the JAX ones do and as
-the losses and the trimap synthesis hold their tensors.
+the losses, the trimap synthesis and the metrics hold their tensors.
 """
 from __future__ import annotations
 
@@ -99,3 +100,44 @@ def dilate_by_radius(mask: torch.Tensor, radius: int | torch.Tensor,
         cur = _channels_last_op(lambda t: F.max_pool2d(t, 3, 1, 1), cur)
         out = torch.where(r == i + 1, cur, out)
     return out
+
+
+def coords_grid(h: int, w: int, dtype=torch.float32,
+                device: str | torch.device = "cpu") -> torch.Tensor:
+    """``[H, W, 2]`` grid of (x, y) pixel coordinates."""
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
+                            torch.arange(w, dtype=dtype, device=device),
+                            indexing="ij")
+    return torch.stack([xs, ys], dim=-1)
+
+
+def grid_sample(img: torch.Tensor, coords: torch.Tensor,
+                mode: str = "bilinear") -> torch.Tensor:
+    """Sample ``img [..., H, W, C]`` at pixel ``coords [..., H', W', 2]``
+    (x, y), as ``F.grid_sample(align_corners=True, padding_mode='zeros')``
+    after the reference's pixel-to-normalized conversion (utils/utils.py:
+    75-88): out-of-frame corners contribute zero. The weights are taken on
+    the pixel coordinates themselves, as the JAX function takes them, so
+    no normalization round trip moves them."""
+    h, w, ch = img.shape[-3:]
+    flat = img.reshape(img.shape[:-3] + (h * w, ch))
+    x, y = coords[..., 0], coords[..., 1]
+
+    def gather(iy, ix):
+        idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+        idx = idx.reshape(idx.shape[:-2] + (-1, 1)).expand(
+            idx.shape[:-2] + (idx.shape[-2] * idx.shape[-1], ch))
+        out = torch.gather(flat, -2, idx).reshape(iy.shape + (ch,))
+        inside = (iy >= 0) & (iy <= h - 1) & (ix >= 0) & (ix <= w - 1)
+        return out * inside[..., None].to(img.dtype)
+
+    if mode == "nearest":
+        # torch rounds with floor(coord + 0.5) on the unnormalized grid
+        return gather(torch.floor(y + 0.5).long(), torch.floor(x + 0.5).long())
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0).to(img.dtype)[..., None], (y - y0).to(img.dtype)[..., None]
+    x0i, y0i = x0.long(), y0.long()
+    return (gather(y0i, x0i) * (1 - wx) * (1 - wy)
+            + gather(y0i, x0i + 1) * wx * (1 - wy)
+            + gather(y0i + 1, x0i) * (1 - wx) * wy
+            + gather(y0i + 1, x0i + 1) * wx * wy)

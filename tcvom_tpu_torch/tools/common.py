@@ -1,0 +1,45 @@
+"""What the port's CLIs share: the device flag and the model with its
+weights."""
+from __future__ import annotations
+
+import argparse
+import re
+
+from tcvom_tpu_torch.models.registry import build_model
+from tcvom_tpu_torch.utils.checkpoint import load_weights, read_state_dict
+
+MODELS = ["gca", "dim", "fba", "index"]
+PUBLISHED_LAYERS = (3, 4, 6, 3)
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: the card; 'cpu' to run on "
+                        "the CPU)")
+
+
+def encoder_depth(sd: dict) -> tuple[int, ...]:
+    """Blocks per encoder stage of a state_dict (``encoder.layer<i>.<j>.``
+    keys); the published depth if it holds none."""
+    blocks = {}
+    for k in sd:
+        m = re.match(r"encoder\.layer([1-4])\.(\d+)\.", k)
+        if m:
+            i = int(m.group(1))
+            blocks[i] = max(blocks.get(i, 0), int(m.group(2)) + 1)
+    if len(blocks) < 4:
+        return PUBLISHED_LAYERS
+    return tuple(blocks[i] for i in range(1, 5))
+
+
+def load_model(name: str, args, agg_window: int = 7):
+    """``name`` built on ``args.device`` at the encoder depth of the
+    checkpoint ``args.load``, with its weights; the checkpoint's missing
+    and unexpected keys are printed."""
+    sd = read_state_dict(args.load)
+    model = build_model(name, agg_window=agg_window, layers=encoder_depth(sd),
+                        device=args.device)
+    missing, unexpected = load_weights(model, sd)
+    print(f"loaded {args.load}: {len(missing)} missing keys "
+          f"{missing[:5]}, {len(unexpected)} unexpected {unexpected[:5]}")
+    return model

@@ -1,0 +1,99 @@
+"""Single-frame baseline inference (port of tools/pred_single.py): the
+single-frame model on the center frame of each VideoMatting108 val sample
+with trimaps synthesized at a fixed width; writes pred/tri PNGs and prints
+the mean SAD / MSE over the unknown region.
+
+    python -m tcvom_tpu_torch.tools.pred_single --model fba --data VMD108/ \
+        --load ckpt.pth --trimap medium --save out/ [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from tcvom_tpu_torch.data.vmd import VideoMattingDataset, make_loader
+from tcvom_tpu_torch.infer.predict import (TRIMAP_DILATION,
+                                           make_single_eval_step,
+                                           write_pred_pngs)
+from tcvom_tpu_torch.models.full_model import TaskConfig
+from tcvom_tpu_torch.tools.common import MODELS, add_device_arg, load_model
+from tcvom_tpu_torch.tools.pred_vmn import default_save
+from tcvom_tpu_torch.utils.logging import print_loss_dict
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model", required=True, choices=MODELS)
+    p.add_argument("--data", required=True)
+    p.add_argument("--load", required=True, help="checkpoint (.pth)")
+    p.add_argument("--n_threads", type=int, default=8,
+                   help="DataLoader worker processes")
+    p.add_argument("--subset", action="store_true")
+    p.add_argument("--save", default=None)
+    p.add_argument("--trimap", required=True, choices=list(TRIMAP_DILATION))
+    p.add_argument("--image_shape", type=int, nargs=2, default=(1088, 1920))
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--dataset", default="vmd", choices=["vmd", "adobe"],
+                   help="'adobe' (the DIM still-image set) is not ported: "
+                        "ROADMAP.md Queue 1 item 11")
+    p.add_argument("--val_mode", default="resize",
+                   choices=["gca", "dim", "origin", "resize"],
+                   help="Adobe resizing (with --dataset adobe)")
+    p.add_argument("--min_shape", type=int, default=800,
+                   help="Adobe resizing (with --dataset adobe)")
+    p.add_argument("--vis", action="store_true",
+                   help="side-by-side visualizations with a caption (not "
+                        "ported: they draw text with OpenCV)")
+    add_device_arg(p)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """The sweep; returns the mean SAD and MSE written to loss.log."""
+    args = parse_args(argv)
+    if args.dataset == "adobe":
+        raise NotImplementedError("--dataset adobe needs the DIM still-image "
+                                  "dataset: ROADMAP.md Queue 1 item 11")
+    if args.vis:
+        raise NotImplementedError("--vis draws its captions with OpenCV: "
+                                  "ROADMAP.md Queue 1 item 9")
+    args.save = args.save or default_save("single", args)
+    os.makedirs(args.save, exist_ok=True)
+
+    cfg = TaskConfig(model=args.model,
+                     dilate_radius=TRIMAP_DILATION[args.trimap])
+    dataset = VideoMattingDataset(
+        data_root=args.data, image_shape=tuple(args.image_shape), mode="val",
+        use_subset=args.subset, plus1=False, precomputed_val=args.data,
+        sample_length=3, no_flow=True)
+    loader = make_loader(dataset, args.batch, args.n_threads)
+    model = load_model(args.model, args)
+    step = make_single_eval_step(model, cfg)
+
+    c = dataset.sample_length // 2
+    msad, mse, count = 0.0, 0.0, 0
+    for batch in loader:
+        _, alphas, tris = step(batch)
+        alphas, tris = alphas.cpu().numpy(), tris.cpu().numpy()
+        gts = batch["a"][:, c] / 255.0
+        for i in range(alphas.shape[0]):
+            t = tris[i, ..., 0]
+            m = (t > 0) & (t < 1)
+            if m.sum():
+                d = alphas[i, ..., 0][m] - gts[i, ..., 0][m]
+                msad += float(np.mean(np.abs(d)))
+                mse += float(np.mean(d * d))
+                count += 1
+        names = [dataset.samples[int(i)][c] for i in batch["idx"]]
+        crop = (min(1080, alphas.shape[1]), alphas.shape[2])
+        write_pred_pngs(args.save, names, alphas, tris, crop_hw=crop)
+        print(names[-1])
+    res = {"mSAD": msad / max(count, 1), "MSE": mse / max(count, 1)}
+    print_loss_dict(res, os.path.join(args.save, "loss.log"))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,139 @@
+"""The port's command-line tools on the CPU (``--device cpu``) at a small
+depth (the tools build the depth their checkpoint holds): pred_test over a root of videos with --shard, pred_vmn then
+calc_metric on a fake VideoMatting108 tree with the zlib PNG codec standing
+in for OpenCV, pred_single, and the flags that are not ported yet."""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tcvom_tpu_torch.models.registry import build_model
+from tcvom_tpu_torch.tools import (calc_metric, make_fake_dataset, pred_single,
+                                   pred_test, pred_vmn)
+from tcvom_tpu_torch.tools.common import PUBLISHED_LAYERS, encoder_depth
+from tcvom_tpu_torch.utils import imageio as IO
+from tcvom_tpu_torch.utils.checkpoint import save_weights
+
+CPU = ["--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def ckpts(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("ckpt")
+    out = {}
+    for name in ("vmn_fba", "fba"):
+        out[name] = str(tmp / f"{name}.pth")
+        save_weights(build_model(name, agg_window=3, layers=(1, 1, 1, 1),
+                                 device="cpu"), out[name])
+    return out
+
+
+@pytest.fixture
+def zlib_codec(monkeypatch):
+    """Image files through the port's own PNG codec, as on a machine
+    without OpenCV."""
+    monkeypatch.setattr(IO, "cv2", None)
+
+
+def test_pred_test_shards_videos(ckpts, tmp_path):
+    root = tmp_path / "wild"
+    for i, v in enumerate(("clipA", "clipB", "clipC")):
+        make_fake_dataset.make_wild_folder(str(root / v), frames=2,
+                                           hw=(40, 70), seed=i)
+    base = ["--model", "fba", "--vmn", "--load", ckpts["vmn_fba"], "--data",
+            str(root), "--agg_window", "3"] + CPU
+    # shard i of N takes videos [i*3//N, (i+1)*3//N): 0/2 is clipA alone
+    stats = pred_test.main(base + ["--save", str(tmp_path / "s0"),
+                                   "--shard", "0/2", "--dilation", "2"])
+    assert os.listdir(tmp_path / "s0") == ["clipA"]
+    assert [s["frames"] for s in stats] == [2]
+    pred_test.main(base + ["--save", str(tmp_path / "s1"), "--shard", "1/2"])
+    assert sorted(os.listdir(tmp_path / "s1")) == ["clipB", "clipC"]
+    for i in range(2):
+        a = IO.imread(str(tmp_path / "s1" / "clipC" / f"{i:05d}_alpha.png"),
+                      IO.IMREAD_GRAYSCALE)
+        assert a.shape == (40, 70)
+    # a positional selection, single-frame model
+    pred_test.main(["--model", "fba", "--load", ckpts["fba"], "--data",
+                    str(root), "--save", str(tmp_path / "one"), "clipB"]
+                   + CPU)
+    assert os.listdir(tmp_path / "one") == ["clipB"]
+    with pytest.raises(SystemExit):
+        pred_test.main(base + ["--save", str(tmp_path / "x"),
+                               "--shard", "2/2"])
+
+
+def test_pred_vmn_then_calc_metric(ckpts, tmp_path, zlib_codec):
+    data, save = str(tmp_path / "vmd"), str(tmp_path / "pred")
+    make_fake_dataset.make(data, frames=3, hw=(64, 96))
+    losses = pred_vmn.main(["--model", "fba", "--data", data, "--load",
+                            ckpts["vmn_fba"], "--trimap", "medium", "--save",
+                            save, "--agg_window", "3", "--batch", "2",
+                            "--image_shape", "64", "96", "--n_threads", "0"]
+                           + CPU)
+    assert set(losses) == {"L_alpha", "L_comp", "L_grad", "L_dt", "L_att",
+                           "L_total"}
+    assert all(np.isfinite(v) for v in losses.values())
+    assert os.path.exists(os.path.join(save, "loss.log"))
+    for i in range(3):
+        for sfx in ("pred", "tri"):
+            x = IO.imread(os.path.join(save, "clip_b", f"{i:05d}_{sfx}.png"),
+                          IO.IMREAD_UNCHANGED)
+            assert x.shape == (64, 96) and x.dtype == np.uint8
+    agg = calc_metric.main(["--pred", save, "--data", data, "--device",
+                            "cpu", "--n_threads", "2"])
+    with open(os.path.join(save, "metric.json")) as f:
+        assert json.load(f) == agg
+    assert list(agg["all"]) == ["clip_b"]
+    for k in calc_metric.METRIC_KEYS:
+        assert np.isfinite(agg["avg"][k]), k
+
+
+def test_pred_single(ckpts, tmp_path):
+    data, save = str(tmp_path / "vmd"), str(tmp_path / "pred")
+    make_fake_dataset.make(data, frames=2, hw=(64, 64))
+    res = pred_single.main(["--model", "fba", "--data", data, "--load",
+                            ckpts["fba"], "--trimap", "narrow", "--save",
+                            save, "--image_shape", "64", "64",
+                            "--n_threads", "0", "--batch", "2"] + CPU)
+    assert set(res) == {"mSAD", "MSE"} and 0 < res["mSAD"] < 1
+    assert sorted(os.listdir(os.path.join(save, "clip_b"))) == [
+        "00000_pred.png", "00000_tri.png", "00001_pred.png", "00001_tri.png"]
+
+
+def test_tools_raise_for_what_is_not_ported(ckpts, tmp_path):
+    base = ["--data", str(tmp_path), "--load", ckpts["fba"], "--trimap",
+            "medium"] + CPU
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pred_single.main(["--model", "fba", "--dataset", "adobe"] + base)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pred_single.main(["--model", "fba", "--vis"] + base)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pred_vmn.main(["--model", "fba", "--space", "2"] + base)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pred_test.main(["--model", "dim", "--vmn", "--load", ckpts["fba"],
+                        "--data", str(tmp_path), "--save", str(tmp_path),
+                        "v"] + CPU)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pred_test.main(["--model", "fba", "--load", ckpts["fba"],
+                            "--data", str(tmp_path), "--save",
+                            str(tmp_path), "v"])
+
+
+def test_tools_build_the_checkpoints_depth():
+    for layers in ((1, 1, 1, 1), (2, 1, 3, 1)):
+        sd = build_model("vmn_fba", layers=layers, device="cpu").state_dict()
+        assert encoder_depth(sd) == layers
+    assert encoder_depth({"decoder.conv_up4.0.weight": None}) == \
+        PUBLISHED_LAYERS
+
+
+@pytest.mark.parametrize("tool", [pred_test, pred_vmn, pred_single,
+                                  calc_metric])
+def test_tools_print_their_help(tool, capsys):
+    with pytest.raises(SystemExit) as e:
+        tool.main(["--help"])
+    assert e.value.code == 0 and "--device" in capsys.readouterr().out
