@@ -39,19 +39,37 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    S=5, 512x512, Adam, poly lr 1e-4, weight decay 1e-4, synthetic seeded
    clips): one step through the kernels against one through the plain
    versions (losses, gradients, launch counts), five more steps (finite
-   losses, ms, peak memory) and one validation step (B=6, S=3, 544x960).
+   losses, ms, peak memory) and one validation step (B=6, S=3, 544x960);
+9. fam_c32: both FAM entries at IndexNet's width, [2, 136, 240, 32],
+   against the plain version, timed by the profiler's device time (a
+   launch there runs shorter than its call from Python takes), with their
+   bounds;
+10. the DIM and IndexNet streams (vmn_dim, FAM at C = 256; vmn_index, C =
+   32; both 1088x1920, window 7, random weights from seed 0, no EDT: their
+   trimap is one channel): main_<name>_f32 (4 frames, kernels against plain
+   versions within one level, >= 99.9 % identical) and main_<name>_bf16
+   (12 frames, against the plain versions within BF16_BACKBONE, beside
+   what the TPU kernel's own bf16 weights move the stream by), each with
+   launches {"fam_window": n}, known pixels pasted exactly and the share
+   of unknown pixels strictly between 0 and 255 (under 1 %, the weights
+   are calibrated first: calibrate_random_weights); times and memory;
+11. pred_single --model dim on pred_vmn's clip (f32; finite mSAD and MSE,
+   the PNGs, seconds per sample, no kernel launched) and pred_vmn --model
+   index on it (f32; one fam_window_logits launch per sample, finite
+   losses, the PNGs).
 
 The line before the last lists every kernel row on every path that runs
 it (name, route, source, the TPU kernel it replaces, the path, launches
 on that path, error, ms, plain ms, bound); the last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 ``--profile FILE`` adds torch.profiler breakdowns of two bf16 stream
-steps, one pred_vmn evaluation step and two train steps, their tables
-written to FILE.
+steps of each backbone, one pred_vmn evaluation step and two train steps,
+their tables written to FILE.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -77,6 +95,20 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 # with ~2 levels and ~0.5 points to spare; a fault in the kernel moves far
 # more.
 BF16_STREAM = {"max_level_diff": 32, "identical_share": 0.975}
+# The bf16 streams of vmn_dim and vmn_index, kernels against plain versions
+# (12 frames, 1088x1920, seed 0). Each run prints beside it what the TPU
+# kernel's own rounding (its softmax weights in bf16, the plain path given
+# that rounding) moves the same stream by (phase tpu_rounding_<name>). DIM
+# (calibrated weights) is moved by it at most 6 levels, 96.364 % identical,
+# and by the kernel 5 levels, 96.495 % (measured once on the H100, PERF.md):
+# its limit admits the TPU kernel's own precision with 2 levels and ~0.5
+# points to spare, as BF16_STREAM does for FBA. IndexNet's stream (1 level,
+# 99.9994 % from the TPU's rounding) stays within BF16_STREAM.
+BF16_BACKBONE = {"dim": {"max_level_diff": 8, "identical_share": 0.958},
+                 "index": BF16_STREAM}
+# share of the unknown pixels (trimap 128) whose matte must lie strictly
+# between 0 and 255 before a comparison of mattes says something
+LIVE_SHARE = 0.01
 PEAK_OPS = {torch.float32: 67e12,             # f32 outside the tensor cores
             torch.bfloat16: 989e12,           # bf16 tensor cores, dense
             # an add or a min is one operation in one issue slot (the 67
@@ -111,6 +143,28 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel: str) -> float:
+    """Device time per call of the kernels whose name holds ``kernel``,
+    by torch.profiler, over ``iters`` warm calls: for a kernel shorter
+    than its launch from Python, where CUDA events between launches time
+    the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.key)
+    if not us:
+        fail(f"the profiler saw no device time of {kernel}")
+    return us / iters / 1e3
 
 
 def host_ms(fn, iters: int) -> float:
@@ -215,6 +269,46 @@ def run_stream(sp, frames):
     outs.append(sp.flush(state))
     torch.cuda.synchronize()
     return outs
+
+
+def check_mattes(outs, frames, what: str):
+    """uint8 [1, H, W] mattes with the trimap's known pixels pasted
+    exactly."""
+    for out, (_, tri) in zip(outs, frames):
+        if out.shape != (1, H, W) or out.dtype != torch.uint8:
+            fail(f"{what} matte {tuple(out.shape)} {out.dtype}")
+        t = tri[..., 0]
+        known = (t == 0) | (t == 255)
+        if not torch.equal(out[known], t[known]):
+            fail(f"{what} matte: known pixels differ from the trimap")
+
+
+def unknown_share(outs, frames) -> float:
+    """Share of the trimaps' unknown pixels whose matte lies strictly
+    between 0 and 255."""
+    inside = total = 0
+    for out, (_, tri) in zip(outs, frames):
+        o = out[tri[..., 0] == 128]
+        inside += ((o > 0) & (o < 255)).sum().item()
+        total += o.numel()
+    return inside / total
+
+
+def fam_ref_tpu_weights(q, k, mask, window: int, need_logits=False):
+    """The plain FAM with its softmax weights rounded to q's dtype before
+    the weighted sum, as the TPU kernel rounds them
+    (tcvom_tpu/ops/fam_pallas.py:249): in bf16, the TPU kernel's own
+    effect on a stream."""
+    b, h, w, c = q.shape
+    r = window // 2
+    qf, kp = q.float(), torch.nn.functional.pad(k.float(),
+                                                (0, 0, r, r, r, r))
+    shifted = [kp[:, r + dy:r + dy + h, r + dx:r + dx + w]
+               for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+    logits = torch.stack([(qf * ks).sum(-1) for ks in shifted], -1) / c ** 0.5
+    att = torch.softmax(logits, dim=-1).to(q.dtype).float()
+    out = sum(att[..., p:p + 1] * ks for p, ks in enumerate(shifted))
+    return (out * mask.float()).to(q.dtype), None
 
 
 def hold_edt(edt_kernel, x, t: int, timed: bool = False, **where):
@@ -410,6 +504,39 @@ def check_fam_logits(fam, fam_kernel):
                  shape=list(shape), atol=1e-5, max_abs_err=err)
             if err > 1e-5:
                 fail(f"FamAttention gradients off by {err}")
+    return res
+
+
+def check_fam_c32(fam, fam_kernel):
+    """Kernel B (``fam_window``) in f32 and bf16 and the logits entry
+    (kernels C/D) in f32 at IndexNet's [prev; next] batch, [2, 136, 240,
+    32], window 7, each held against the plain version and timed: at this
+    width a launch runs shorter than the wrapper's call takes, so its
+    ``ms`` is the profiler's device time (the CUDA-event time beside it,
+    ``event_ms``, is the launch rate). Returns the times by dtype, and the
+    logits entry's under "logits"."""
+    rng = np.random.RandomState(9)
+    shape, res = (2, H // 8, W // 8, 32), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        (q, k, m), errs = hold_fam(fam, fam_kernel, rng, shape, WINDOW,
+                                   dtype)
+        entries = [(dtype, "fam_window", False)]
+        if dtype == torch.float32:
+            entries.append(("logits", "fam_window_logits", True))
+        for key, name, logits in entries:
+            fn = getattr(fam_kernel, name)
+            event_ms = time_ms(lambda: fn(q, k, m, WINDOW), 20)
+            ms = device_ms(lambda: fn(q, k, m, WINDOW), 20,
+                           "fam_window_mma_kernel")
+            plain_ms = time_ms(lambda: fam.fam_attention_ref(q, k, m, WINDOW),
+                               3)
+            b_ms, b_by = bound(*fam_counts(m, 32, WINDOW, logits=logits),
+                               dtype)
+            err = max(v for e, v in errs.items() if e.startswith(name + " "))
+            res[key] = dict(shape=list(shape), dtype=str(dtype),
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+            emit(phase="time", kernel=name, **res[key], event_ms=event_ms)
     return res
 
 
@@ -687,13 +814,209 @@ def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
     return counts, val_counts
 
 
+def stream_tflop(model) -> tuple[float, float]:
+    """TFLOP of one encode (encoder, extract half, FAM projections) and
+    of one decoder head of the VMN ``model`` at H x W, counted by
+    torch.utils.flop_counter on a copy on the meta device (the FAM
+    attention between them is the kernel's, counted in its own row)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    meta = copy.deepcopy(model).to("meta")
+    x = torch.zeros(1, 4, H, W, device="meta")
+    with torch.no_grad(), FlopCounterMode(display=False) as enc:
+        feats, qkv = meta.encode_extract_qkv(x)
+    with torch.no_grad(), FlopCounterMode(display=False) as head:
+        meta.decoder(type(meta.decoder).prune_enc_head(feats), mode="head",
+                     x=qkv["v"])
+    return enc.get_total_flops() / 1e12, head.get_total_flops() / 1e12
+
+
+def backbone_phase(name: str, fam, edt_kernel, cuda_build,
+                   profile_path=None) -> dict:
+    """The stream of ``vmn_<name>`` (DIM or IndexNet) at 1088x1920, random
+    weights from seed 0, as phases 4 and 5 drive FBA's: 4 frames in f32,
+    then 12 in bf16, each through the kernels (launches counted) and
+    through the plain versions; the bf16 plain path also with the TPU
+    kernel's rounding of its weights. If the f32 mattes are saturated
+    (under LIVE_SHARE of the unknown pixels strictly between 0 and 255),
+    the weights are calibrated on three frames first. Returns the f32 and
+    bf16 launches."""
+    from tcvom_tpu_torch.infer.predict import StreamingPredictor
+    from tcvom_tpu_torch.models.full_model import TaskConfig, forward_eval
+    from tcvom_tpu_torch.models.registry import (build_model,
+                                                 calibrate_random_weights)
+
+    frames = make_frames(12)
+    cfg = TaskConfig(model="vmn_" + name, agg_window=WINDOW)
+    model = build_model(cfg.model, agg_window=WINDOW,
+                        generator=torch.Generator().manual_seed(0))
+    enc_tflop, head_tflop = stream_tflop(model)
+
+    def f32_stream():
+        sp32 = StreamingPredictor(model, cfg, fgbg=False, quantize=True)
+        cuda_build.LAUNCHES.clear()
+        got = run_stream(sp32, frames[:4])
+        return sp32, got, dict(cuda_build.LAUNCHES)
+
+    sp32, got, f32_counts = f32_stream()
+    share_random = unknown_share(got, frames[:4])
+    calibrated = share_random < LIVE_SHARE
+    if calibrated:
+        imgs, tris = (torch.stack([f[i] for f in frames[:3]], 1).float()
+                      for i in (0, 1))
+        calibrate_random_weights(
+            model, lambda: forward_eval(model, imgs, tris, cfg))
+        del sp32, got, imgs, tris
+        sp32, got, f32_counts = f32_stream()
+    share = unknown_share(got, frames[:4])
+    check_mattes(got, frames, f"{name} f32")
+    feats = [sp32.encode(*frames[i]) for i in range(3)]
+    dec32_ms = host_ms(lambda: sp32.decode(*feats), 10)
+    del feats
+    want = run_plain_stream(sp32, frames[:4], fam, edt_kernel, cuda_build)
+    diff, same = hold_stream(
+        f"main_{name}_f32", want, got, launches=f32_counts,
+        decode_ms=dec32_ms, unknown_share_random_weights=share_random,
+        weights_calibrated=calibrated, unknown_share=share)
+    if f32_counts != {"fam_window": 4}:
+        fail(f"{name} f32 launch counts {f32_counts}, want 4 decodes")
+    if share < LIVE_SHARE:
+        fail(f"{name} f32 mattes saturated: {share:.6f} of the unknown "
+             "pixels strictly between 0 and 255")
+    if diff > 1 or same < 0.999:
+        fail(f"{name} f32 mattes: kernels and plain versions disagree")
+    del sp32, got, want
+
+    sp = StreamingPredictor(model, cfg, dtype=torch.bfloat16, fgbg=False,
+                            quantize=True)
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.LAUNCHES.clear()
+    outs = run_stream(sp, frames)
+    counts = dict(cuda_build.LAUNCHES)
+    mem_gib = torch.cuda.max_memory_allocated() / 2**30
+    n = len(frames)
+    check_mattes(outs, frames, f"{name} bf16")
+    if counts != {"fam_window": n}:
+        fail(f"{name} bf16 launch counts {counts}, want {n} decodes")
+    want = run_plain_stream(sp, frames, fam, edt_kernel, cuda_build)
+    with mock.patch.object(fam, "fam_attention", fam_ref_tpu_weights):
+        tpu = run_stream(sp, frames)
+    hold_stream(f"tpu_rounding_{name}", want, tpu,
+                what="plain path with the TPU kernel's bf16 weights")
+    diff, same = hold_stream(f"main_{name}_bf16", want, outs,
+                             unknown_share=unknown_share(outs, frames),
+                             weights_calibrated=calibrated)
+    limit = BF16_BACKBONE[name]
+    if diff > limit["max_level_diff"] or same < limit["identical_share"]:
+        fail(f"{name} bf16 mattes: kernels {diff} levels off plain at most, "
+             f"{same:.6f} identical; allowed {limit}")
+    del want, tpu, outs
+
+    img, tri = frames[1]
+    f_prev, f_cur, f_next = (sp.encode(*frames[i]) for i in range(3))
+    enc_ms = host_ms(lambda: sp.encode(img, tri), 10)
+    dec_ms = host_ms(lambda: sp.decode(f_prev, f_cur, f_next), 10)
+    state = None
+    for fr in frames[:2]:
+        state, _ = sp.step(state, *fr)
+
+    def one_step():
+        nonlocal state
+        state, _ = sp.step(state, img, tri)
+
+    step_ms = host_ms(one_step, 10)
+    emit(phase=f"main_{name}_bf16", frames=n, launches=counts,
+         encode_ms=enc_ms, decode_ms=dec_ms, step_ms=step_ms,
+         fps=1e3 / step_ms, max_memory_allocated_gib=mem_gib,
+         encode_tflop=enc_tflop, head_tflop=head_tflop,
+         step_tflop_per_s=(enc_tflop + head_tflop) / step_ms * 1e3)
+    if profile_path:
+        profile_steps(one_step, 2, profile_path, f"profile_{name}_bf16")
+    return {"f32": f32_counts, "bf16": counts}
+
+
+def pred_single_phase(tmp, root, cuda_build):
+    """tools/pred_single.py with the single-frame DIM (random weights from
+    seed 0, through a .pth) on pred_vmn's clip: f32, B = 1, 1088x1920,
+    medium trimaps, the samples read in this process. No kernel is on this
+    path: the trimap is one channel and there is no FAM."""
+    from tcvom_tpu_torch.models.registry import build_model
+    from tcvom_tpu_torch.tools import pred_single
+    from tcvom_tpu_torch.utils.checkpoint import save_weights
+
+    ckpt, save = tmp / "dim.pth", tmp / "pred_single"
+    save_weights(build_model("dim", generator=torch.Generator().manual_seed(0)),
+                 str(ckpt))
+    cuda_build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = pred_single.main(["--model", "dim", "--dataset", "vmd", "--data",
+                            str(root), "--load", str(ckpt), "--trimap",
+                            "medium", "--save", str(save), "--batch", "1",
+                            "--image_shape", str(H), str(W),
+                            "--n_threads", "0"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(cuda_build.LAUNCHES)
+    written = sorted(p.name for p in (save / "clip_b").iterdir())
+    emit(phase="pred_single", model="dim", samples=4, shape=[1, 3, H, W],
+         result=res, seconds=secs, s_per_sample=secs / 4, launches=counts,
+         written=len(written))
+    if counts:
+        fail(f"pred_single dim launched kernels: {counts}")
+    if not all(np.isfinite(v) for v in res.values()):
+        fail(f"pred_single results {res}")
+    if written != [f"{i:05d}_{k}.png" for i in range(4)
+                   for k in ("pred", "tri")]:
+        fail(f"pred_single wrote {written}")
+
+
+def pred_vmn_index_phase(tmp, root, cuda_build):
+    """tools/pred_vmn.py with vmn_index (random weights from seed 0,
+    through a .pth) on the same clip, the samples read in this process
+    (the spawned loader's start is timed in the FBA sweep). Returns the
+    launches."""
+    from tcvom_tpu_torch.models.registry import build_model
+    from tcvom_tpu_torch.tools import pred_vmn
+    from tcvom_tpu_torch.utils.checkpoint import save_weights
+
+    ckpt, save = tmp / "vmn_index.pth", tmp / "pred_vmn_index"
+    save_weights(build_model("vmn_index", agg_window=WINDOW,
+                             generator=torch.Generator().manual_seed(0)),
+                 str(ckpt))
+    cuda_build.LAUNCHES.clear()
+    t0, sweep = time.perf_counter(), {}
+    losses = pred_vmn.main(["--model", "index", "--data", str(root),
+                            "--load", str(ckpt), "--trimap", "medium",
+                            "--save", str(save), "--agg_window", str(WINDOW),
+                            "--batch", "1", "--image_shape", str(H), str(W),
+                            "--n_threads", "0"], sweep)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(cuda_build.LAUNCHES)
+    written = sorted(p.name for p in (save / "clip_b").iterdir())
+    emit(phase="pred_vmn_index", samples=4, shape=[1, 3, H, W],
+         launches=counts, losses=losses, sweep_s=secs,
+         s_per_sample=secs / 4, sweep_phases_s=sweep, written=len(written))
+    if counts != {"fam_window_logits": 4}:
+        fail(f"pred_vmn index launch counts {counts}, want 4")
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f"pred_vmn index losses {losses}")
+    if written != [f"{i:05d}_{k}.png" for i in range(4)
+                   for k in ("pred", "tri")]:
+        fail(f"pred_vmn index wrote {written}")
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
-                    help="profile two bf16 stream steps, one pred_vmn "
-                         "evaluation step and two train steps; write the "
-                         "tables to FILE")
+                    help="profile two bf16 stream steps of each backbone, "
+                         "one pred_vmn evaluation step and two train steps; "
+                         "write the tables to FILE")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -763,13 +1086,7 @@ def main():
     outs = run_stream(sp, frames)
     counts = dict(cuda_build.LAUNCHES)
     n = len(frames)
-    for out, (_, tri) in zip(outs, frames):
-        if out.shape != (1, H, W) or out.dtype != torch.uint8:
-            fail(f"bf16 matte {tuple(out.shape)} {out.dtype}")
-        t = tri[..., 0]
-        known = (t == 0) | (t == 255)
-        if not torch.equal(out[known], t[known]):
-            fail("bf16 matte: known pixels differ from the trimap")
+    check_mattes(outs, frames, "bf16")
     if counts != {"edt_row": n, "fam_window": n}:
         fail(f"bf16 launch counts {counts}, want {n} encodes and {n} decodes")
     want = run_plain_stream(sp, frames, fam, edt_kernel, cuda_build)
@@ -807,15 +1124,16 @@ def main():
     # -- 6. the evaluation tools: pred_test (bf16), pred_vmn (f32), calc_metric
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build) as tmp:
-        tmp = Path(tmp)
-        pt_counts = pred_test_phase(model, tmp, step_ms, fam, edt_kernel,
-                                    cuda_build)
-        vmn_counts, root, save = pred_vmn_phase(model, tmp, cuda_build,
-                                                args.profile)
-        del model
-        torch.cuda.empty_cache()
-        calc_metric_phase(root, save)
+    # the tools' files, kept for phase 11 (removed at exit in any case)
+    tmpdir = tempfile.TemporaryDirectory(dir=build)
+    tmp = Path(tmpdir.name)
+    pt_counts = pred_test_phase(model, tmp, step_ms, fam, edt_kernel,
+                                cuda_build)
+    vmn_counts, root, save = pred_vmn_phase(model, tmp, cuda_build,
+                                            args.profile)
+    del model
+    torch.cuda.empty_cache()
+    calc_metric_phase(root, save)
 
     # -- 7. training and pred_vmn kernels against their plain versions ---------
     logits_res = check_fam_logits(fam, fam_kernel)
@@ -824,6 +1142,22 @@ def main():
     # -- 8. the video trainer, f32, full width and depth -------------------------
     train_counts, val_counts = train_phase(fam, edt_kernel, cuda_build,
                                            args.profile)
+    torch.cuda.empty_cache()
+
+    # -- 9. the FAM kernels at IndexNet's width ----------------------------------
+    c32_res = check_fam_c32(fam, fam_kernel)
+
+    # -- 10. the DIM and IndexNet streams, f32 and bf16 ---------------------------
+    streams = {}
+    for name in ("dim", "index"):
+        streams[name] = backbone_phase(name, fam, edt_kernel, cuda_build,
+                                       args.profile)
+        torch.cuda.empty_cache()
+
+    # -- 11. pred_single (DIM) and pred_vmn (IndexNet) on pred_vmn's clip ---------
+    pred_single_phase(tmp, root, cuda_build)
+    index_vmn_counts = pred_vmn_index_phase(tmp, root, cuda_build)
+    tmpdir.cleanup()
 
     # every row: the launches are its own path's (counts set to 0 just
     # before the path, read just after), the rest measured above
@@ -858,7 +1192,24 @@ def main():
         dict(logits_c, path="pred_vmn", replaces="tcvom_tpu/ops/fam_pallas.py:97",
              launches=vmn_counts["fam_window_logits"],
              **logits_res[(2, 136, 240, 256)]),
+        dict(fam_b, path="stream_dim_bf16",
+             launches=streams["dim"]["bf16"]["fam_window"],
+             **fam_res[torch.bfloat16]),
+        dict(fam_b, path="stream_dim_f32",
+             launches=streams["dim"]["f32"]["fam_window"],
+             **fam_res[torch.float32]),
+        dict(fam_b, path="stream_index_bf16",
+             launches=streams["index"]["bf16"]["fam_window"],
+             **c32_res[torch.bfloat16]),
+        dict(fam_b, path="stream_index_f32",
+             launches=streams["index"]["f32"]["fam_window"],
+             **c32_res[torch.float32]),
+        dict(logits_c, path="pred_vmn_index",
+             replaces="tcvom_tpu/ops/fam_pallas.py:97",
+             launches=index_vmn_counts["fam_window_logits"],
+             **c32_res["logits"]),
     ]
+    emit(phase="wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

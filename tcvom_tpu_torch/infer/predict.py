@@ -148,10 +148,13 @@ class StreamingPredictor:
         tri = tri_raw.float()
         pre = FM.preprocess_eval(img, tri, cfg)
         inputs = _nchw(torch.cat([pre["imgs"], pre["tris"]], dim=-1))
-        extras = (_nchw(pre["scaled_imgs"]), _nchw(pre["tris"][..., -2:]))
+        # only FBA's head reads the raw image and the 2-channel trimap
+        extras = ((_nchw(pre["scaled_imgs"]), _nchw(pre["tris"][..., -2:]))
+                  if cfg.method == "fba" else None)
         if self.dtype is not None:
             inputs = inputs.to(self.dtype)
-            extras = tuple(t.to(self.dtype) for t in extras)
+            if extras is not None:
+                extras = tuple(t.to(self.dtype) for t in extras)
         enc, qkv = self.model.encode_extract_qkv(inputs, extras)
         out = dict(enc=type(self.model.decoder).prune_enc_head(enc),
                    trimask=_nchw(pre["trimasks"]), **qkv)

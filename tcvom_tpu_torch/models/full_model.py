@@ -143,8 +143,42 @@ def preprocess(a, fg, bg, cfg: TaskConfig, radius=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Losses (reference models/model.py:129-197, 286-345)
+# Losses (reference models/model.py:94-197, 286-345)
 # ---------------------------------------------------------------------------
+
+def single_image_losses(cfg: TaskConfig, preds, pre, start: int, end: int):
+    """Per-frame L_alpha, L_comp and L_grad of the non-FBA methods over the
+    trimap's unknown region (models/model.py:94-127; GCA has only
+    L_alpha): preds ``[B, S, H, W, 1]``. Returns (L1, L2, L3, alphas,
+    comps), the last two clipped to [0, 1] with the frames outside
+    [start, end) zero."""
+    gts, fgs, bgs, imgs = (pre["scaled_gts"], pre["scaled_fgs"],
+                           pre["scaled_bgs"], pre["scaled_imgs"])
+    tm = pre["trimasks"]
+    s = preds.shape[1]
+    gca = cfg.method == "gca"
+    l_alpha, l_comp, l_grad = [], [], []
+    alphas, comps = [None] * s, [None] * s
+    for c in range(start, end):
+        mask = tm[:, c]
+        refine = torch.where(mask > 0.5, preds[:, c], gts[:, c])
+        comps[c] = fgs[:, c] * refine + bgs[:, c] * (1.0 - refine)
+        alphas[c] = refine
+        l_alpha.append(L.l1_mask(refine, gts[:, c], mask))
+        if not gca:
+            l_comp.append(L.l1_mask(comps[c], imgs[:, c], mask))
+            l_grad.append(L.l1_grad(refine, gts[:, c], mask))
+    loss_a = sum(l_alpha) / len(l_alpha)
+    zero = torch.zeros_like(loss_a)
+    for i in range(s):
+        if alphas[i] is None:
+            alphas[i] = torch.zeros_like(alphas[start])
+            comps[i] = torch.zeros_like(comps[start])
+    return (loss_a, zero if gca else sum(l_comp) / len(l_comp),
+            zero if gca else sum(l_grad) / len(l_grad),
+            torch.clamp(torch.stack(alphas, 1), 0, 1),
+            torch.clamp(torch.stack(comps, 1), 0, 1))
+
 
 def fba_single_image_losses(cfg: TaskConfig, preds, pre, start: int,
                             end: int):
@@ -263,12 +297,10 @@ def _cl(t: torch.Tensor) -> torch.Tensor:
 
 def _run_vmn(model, pre, cfg: TaskConfig):
     """The full-clip VMN on the preprocessed clip; channels-last results
-    (preds, attb, attf, small_mask)."""
-    if cfg.method != "fba":
-        raise NotImplementedError(
-            f"{cfg.model!r} is not ported yet: ROADMAP.md Queue 1 item 10")
+    (preds, attb, attf, small_mask). Only FBA's head takes extras."""
     inputs = torch.cat([pre["imgs"], pre["tris"]], dim=-1)
-    extras = (_cf(pre["scaled_imgs"]), _cf(pre["tris"][..., -2:]))
+    extras = ((_cf(pre["scaled_imgs"]), _cf(pre["tris"][..., -2:]))
+              if cfg.method == "fba" else None)
     preds, attb, attf, small = model(_cf(inputs), _cf(pre["trimasks"]),
                                      extras)
     return _cl(preds), attb, attf, _cl(small)
@@ -276,14 +308,24 @@ def _run_vmn(model, pre, cfg: TaskConfig):
 
 def _run_single(model, pre, cfg: TaskConfig, c: int) -> torch.Tensor:
     """A single-frame model on frame ``c`` of the preprocessed clip; its
-    prediction ``[B, H, W, Cout]`` channels-last."""
-    if cfg.method != "fba":
-        raise NotImplementedError(
-            f"{cfg.model!r} is not ported yet: ROADMAP.md Queue 1 item 10")
+    prediction ``[B, H, W, Cout]`` channels-last. Only FBA takes extras."""
     inputs = torch.cat([pre["imgs"][:, c], pre["tris"][:, c]], dim=-1)
+    inputs = inputs.permute(0, 3, 1, 2)
+    if cfg.method != "fba":
+        return model(inputs).permute(0, 2, 3, 1)
     extras = (pre["scaled_imgs"][:, c].permute(0, 3, 1, 2),
               pre["tris"][:, c, ..., -2:].permute(0, 3, 1, 2))
-    return model(inputs.permute(0, 3, 1, 2), extras).permute(0, 2, 3, 1)
+    return model(inputs, extras).permute(0, 2, 3, 1)
+
+
+def _losses(cfg: TaskConfig, preds, pre, start: int, end: int):
+    """(L1, L2, L3, alphas, comps, Fs, Bs): FBA's composite losses, or the
+    other methods' single-image losses with the ground truth's scaled
+    foreground and background as Fs and Bs."""
+    if cfg.method == "fba":
+        return fba_single_image_losses(cfg, preds, pre, start, end)
+    return (*single_image_losses(cfg, preds, pre, start, end),
+            pre["scaled_fgs"], pre["scaled_bgs"])
 
 
 def _center_only(pred_c: torch.Tensor, s: int, c: int) -> torch.Tensor:
@@ -309,8 +351,7 @@ def forward_single(model, batch: dict, cfg: TaskConfig, radius=None):
         c = s // 2
         preds = _center_only(_run_single(model, pre, cfg, c), s, c)
         start, end = c, c + 1
-    l1, l2, l3, alphas, comps, fs, bs = fba_single_image_losses(
-        cfg, preds, pre, start, end)
+    l1, l2, l3, alphas, comps, fs, bs = _losses(cfg, preds, pre, start, end)
     return ({"L1": l1, "L2": l2, "L3": l3},
             dict(pre=pre, alphas=alphas, comps=comps, Fs=fs, Bs=bs))
 
@@ -323,8 +364,7 @@ def forward_vmd(model, batch: dict, cfg: TaskConfig, radius=None):
     s = batch["a"].shape[1]
     pre = preprocess(batch["a"], batch["fg"], batch["bg"], cfg, radius)
     preds, attb, attf, small_mask = _run_vmn(model, pre, cfg)
-    l1, l2, l3, alphas, comps, fs, bs = fba_single_image_losses(
-        cfg, preds, pre, 1, s - 1)
+    l1, l2, l3, alphas, comps, fs, bs = _losses(cfg, preds, pre, 1, s - 1)
     l_att = attention_loss(cfg, attb, attf, small_mask, pre["scaled_gts"])
     l_dt = temporal_loss(cfg, alphas, pre["scaled_gts"], pre["trimasks"],
                          fs, bs, pre["scaled_fgs"], pre["scaled_bgs"])

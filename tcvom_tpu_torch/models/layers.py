@@ -37,3 +37,21 @@ def GroupNorm32(channels: int) -> nn.GroupNorm:
     """GroupNorm(32, eps 1e-5) (FBA's ``norm``, models/FBA/layers_WS.py:26).
     PyTorch keeps the statistics in f32 for bf16 inputs."""
     return nn.GroupNorm(32, channels, eps=1e-5)
+
+
+def BatchNorm(channels: int) -> nn.BatchNorm2d:
+    """BatchNorm2d with the JAX package's settings (eps 1e-5, momentum 0.1,
+    flax's 0.9), used in eval mode: the running statistics of a
+    checkpoint. (In training, flax updates the running variance with the
+    biased batch variance and torch with the unbiased one: ROADMAP.md
+    Queue 1 item 11.)"""
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+def conv_bn_relu6(cin: int, cout: int, kernel: int) -> nn.Sequential:
+    """conv (no bias, stride 1, same padding) + BatchNorm + ReLU6
+    (``min(max(x, 0), 6)``), the reference's ``conv_bn``
+    (models/Index/hlconv.py:36-41): keys ``.0`` and ``.1``."""
+    return nn.Sequential(
+        nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False),
+        BatchNorm(cout), nn.ReLU6())

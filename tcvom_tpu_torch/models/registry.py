@@ -4,7 +4,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from tcvom_tpu_torch.models.dim import DeepMatting, DIMDecoder, DIMEncoder
 from tcvom_tpu_torch.models.fba import FBA, FBADecoder, FBAEncoder
+from tcvom_tpu_torch.models.index import (IndexMatting, IndexMattingDecoder,
+                                          IndexMattingEncoder)
 from tcvom_tpu_torch.models.layers import WSConv2d
 from tcvom_tpu_torch.models.vmn import VMN
 from tcvom_tpu_torch.utils.device import resolve_device
@@ -15,6 +18,12 @@ TRIMAP_CHANNEL_DICT = {"gca": 3, "dim": 1, "index": 1, "fba": 8}
 # VMN_GCA.py:15, VMN_FBA.py:9, VMN_Index.py:10)
 FAM_CHANNELS = {"dim": 256, "gca": 128, "fba": 256, "index": 32}
 
+# the single-frame model and the VMN's (encoder, decoder) of the methods
+# whose constructors take no depth (FBA's take ``layers``)
+_SINGLE = {"dim": DeepMatting, "index": IndexMatting}
+_VMN_PARTS = {"dim": (DIMEncoder, DIMDecoder),
+              "index": (IndexMattingEncoder, IndexMattingDecoder)}
+
 
 def method_of(model_name: str) -> str:
     """'vmn_fba' -> 'fba', 'dim' -> 'dim'."""
@@ -23,7 +32,8 @@ def method_of(model_name: str) -> str:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers: He-normal for weight-standardized
-    convs, Xavier-uniform for plain convs, zero biases, unit norms."""
+    convs, Xavier-uniform for plain convs, zero biases, unit norms with
+    BatchNorm's running statistics at mean 0, variance 1."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, WSConv2d):
@@ -31,8 +41,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                         generator=generator)
             elif isinstance(m, nn.Conv2d):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
-            elif isinstance(m, nn.GroupNorm):
+            elif isinstance(m, (nn.GroupNorm, nn.BatchNorm2d)):
                 nn.init.ones_(m.weight)
+                if isinstance(m, nn.BatchNorm2d):
+                    m.reset_running_stats()
             else:
                 continue
             if m.bias is not None:
@@ -45,21 +57,61 @@ def build_model(model_name: str, agg_window: int = 7, agg_reduction: int = 1,
                 freeze_backbone: bool = False) -> nn.Module:
     """Construct a model with random weights drawn from ``generator``
     (seed 0 if None), in eval mode on ``device`` (``.train()`` switches it,
-    as the trainer does; FBA has no layer that depends on the mode).
-    ``'vmn_fba'`` is the VMN (window ``agg_window``), ``'fba'`` the
-    single-frame model. ``layers`` sets the encoder's blocks per stage
-    (depth only; widths are the published ones); ``freeze_backbone`` runs
-    the encoder and the extract half of a VMN without gradient."""
+    as the trainer does; FBA has no layer that depends on the mode, DIM's
+    and IndexNet's BatchNorms and Dropout do). ``'vmn_<method>'`` is the
+    VMN (window ``agg_window``), ``'<method>'`` the single-frame model, for
+    the methods fba, dim and index. ``layers`` sets FBA's encoder blocks
+    per stage (depth only; widths are the published ones; DIM and IndexNet
+    ignore it); ``freeze_backbone`` runs the encoder and the extract half
+    of a VMN without gradient."""
     dev = resolve_device(device)
-    if model_name == "vmn_fba":
-        model = VMN(FBAEncoder(layers=tuple(layers)), FBADecoder(),
-                    FAM_CHANNELS["fba"], agg_window, agg_reduction,
-                    freeze_backbone)
-    elif model_name == "fba":
-        model = FBA(layers)
-    else:
+    method = method_of(model_name)
+    if method != "fba" and method not in _SINGLE:
         raise NotImplementedError(
             f"{model_name!r} is not ported yet: ROADMAP.md Queue 1 item 10 "
             "(the other backbones)")
+    if model_name.startswith("vmn_"):
+        parts = ((FBAEncoder(layers=tuple(layers)), FBADecoder())
+                 if method == "fba"
+                 else tuple(cls() for cls in _VMN_PARTS[method]))
+        model = VMN(*parts, FAM_CHANNELS[method], agg_window, agg_reduction,
+                    freeze_backbone)
+    else:
+        model = FBA(layers) if method == "fba" else _SINGLE[method]()
     init_weights(model, generator or torch.Generator().manual_seed(0))
     return model.to(dev).eval()
+
+
+def calibrate_random_weights(model: nn.Module, forward) -> None:
+    """Data-dependent initialisation of random weights, for smoke runs and
+    tests: a chain of random layers lets its signal decay or saturate, and
+    then every matte is 0 or 1. One call of ``forward()`` (a pass of
+    ``model`` over some input), without gradient, in which every BatchNorm
+    normalizes with the pass's batch statistics and keeps them as its
+    running statistics, and every convolution's weight and bias are
+    divided by the RMS of its output (LSUV), so that each layer hands on
+    a signal of unit scale. Dropout stays off."""
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+
+    def unit_rms(conv, _, out):
+        s = out.float().square().mean().sqrt().clamp_min(1e-12)
+        conv.weight.div_(s.to(conv.weight.dtype))
+        if conv.bias is not None:
+            conv.bias.div_(s.to(conv.bias.dtype))
+        return out / s.to(out.dtype)
+
+    hooks = [m.register_forward_hook(unit_rms) for m in model.modules()
+             if isinstance(m, nn.Conv2d)]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = None              # the running statistics = this pass's
+        bn.train()
+    try:
+        with torch.no_grad():
+            forward()
+    finally:
+        for h in hooks:
+            h.remove()
+        for bn in bns:
+            bn.momentum = 0.1
+            bn.eval()

@@ -21,6 +21,21 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1)
 
 
+def _tree_map(fn, tree):
+    """``fn`` on each tensor of nested dicts and tuples; None stays None."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _with_extras(enc: dict, extras) -> dict:
+    """The encoder's output with the decoder head's ``extras`` (FBA's raw
+    image and 2-channel trimap); the other backbones have none."""
+    return enc if extras is None else dict(enc, extras=extras)
+
+
 class FeatureAggregationModule(nn.Module):
     """q/k/v 3x3 convs + two masked window attentions (reference
     VMN_model.py:9-68). The projections are exposed separately so a stream
@@ -79,10 +94,10 @@ class VMN(nn.Module):
     def fam(self) -> FeatureAggregationModule:
         return self.decoder.fam
 
-    def encode_extract_qkv(self, images, extras):
+    def encode_extract_qkv(self, images, extras=None):
         """Per-frame half: encoder, decoder feature-extract (OS=8) and the
         frame's FAM projections. Returns (enc, {"q", "k", "v"})."""
-        enc = dict(self.encoder(images), extras=extras)
+        enc = _with_extras(self.encoder(images), extras)
         q, k, v = self.fam.qkv(self.decoder(enc, mode="extract"))
         return enc, {"q": q, "k": k, "v": v}
 
@@ -95,10 +110,11 @@ class VMN(nn.Module):
         pred = self.decoder(enc_c, mode="head", x=agg)
         return pred, attb, attf, small
 
-    def forward(self, images, masks, extras):
+    def forward(self, images, masks, extras=None):
         """Full clip. ``images``: ``[B, S, Cin, H, W]``; ``masks``: unknown
-        region ``[B, S, 1, H, W]``; ``extras``: tuple of ``[B, S, ., H, W]``
-        (FBA's raw image and 2-channel trimap) for the decoder head.
+        region ``[B, S, 1, H, W]``; ``extras``: FBA's tuple of
+        ``[B, S, ., H, W]`` (raw image and 2-channel trimap) for the
+        decoder head, None for the other backbones.
 
         Frames fold into the batch: the per-frame half runs once on B*S
         frames and the decode half once on the B*(S-2) centers, each with
@@ -118,15 +134,14 @@ class VMN(nn.Module):
 
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.freeze_backbone):
-            enc = dict(self.encoder(fold(images)),
-                       extras=tuple(fold(t) for t in extras))
+            enc = _with_extras(self.encoder(fold(images)),
+                               _tree_map(fold, extras))
             feat = self.decoder(enc, mode="extract")
         feat = unfold(feat, s)
         agg, attb, attf, small = self.fam(
             fold(feat[:, 1:s - 1]), fold(feat[:, 0:s - 2]),
             fold(feat[:, 2:s]), fold(masks[:, 1:s - 1]))
-        enc_mid = {"conv_out": tuple(centers(t) for t in enc["conv_out"]),
-                   "extras": tuple(centers(t) for t in enc["extras"])}
+        enc_mid = _tree_map(centers, type(self.decoder).prune_enc_head(enc))
         pred = unfold(self.decoder(enc_mid, mode="head", x=agg), s - 2)
         zero = torch.zeros_like(pred[:, :1])
         return (torch.cat([zero, pred, zero], dim=1), unfold(attb, s - 2),

@@ -2,7 +2,10 @@
 
 The resizes and pools the models use take NCHW tensors. The JAX versions
 were written to equal torch's own operators, so here they are those
-operators: ``F.interpolate``, ``F.max_pool2d`` and ``F.adaptive_avg_pool2d``.
+operators: ``F.interpolate``, ``F.max_pool2d``, ``F.adaptive_avg_pool2d``
+and ``F.pixel_shuffle``. DIM's argmax pool keeps its index as the
+in-window position (uint8), as the JAX one does, not as torch's flat int64
+(:func:`max_pool_argmax_2x2`).
 
 The functions of the training stack (:func:`avg_pool`, :func:`unfold`,
 :func:`image_gradient`, :func:`dilate_by_radius`) and of the metrics
@@ -38,6 +41,43 @@ def adaptive_avg_pool(x: torch.Tensor,
                       out_size: int | tuple[int, int]) -> torch.Tensor:
     """Bin i spans [floor(i*H/s), ceil((i+1)*H/s))."""
     return F.adaptive_avg_pool2d(x, out_size)
+
+
+def max_pool_argmax_2x2(x: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """2x2, stride-2 max pool of ``[N, C, H, W]`` (H, W even) returning
+    (pooled, idx): ``idx`` is the uint8 in-window position of the max in
+    [0, 4), row-major, the first on ties, as ``nn.MaxPool2d(2, 2,
+    return_indices=True)`` picks it. A quarter of torch's int64 flat index:
+    a stream caches three levels of it per frame."""
+    n, c, h, w = x.shape
+    xv = x.view(n, c, h // 2, 2, w // 2, 2)
+    a, b = xv[:, :, :, 0, :, 0], xv[:, :, :, 0, :, 1]
+    d, e = xv[:, :, :, 1, :, 0], xv[:, :, :, 1, :, 1]
+    # each pair keeps its first element unless the second is larger, and
+    # the second pair wins only if strictly larger: the first max overall
+    top, bottom = torch.maximum(a, b), torch.maximum(d, e)
+    idx = torch.where(bottom > top, (e > d).to(torch.uint8) + 2,
+                      (b > a).to(torch.uint8))
+    return torch.maximum(top, bottom), idx
+
+
+def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`max_pool_argmax_2x2`: each value of ``[N, C, h, w]``
+    goes to its recorded in-window slot of ``[N, C, 2h, 2w]``, zeros
+    elsewhere (``nn.MaxUnpool2d(2, 2)``)."""
+    n, c, h, w = x.shape
+    slot = torch.arange(4, dtype=idx.dtype, device=idx.device).view(
+        1, 1, 1, 2, 1, 2)
+    out = torch.where(idx[:, :, :, None, :, None] == slot,
+                      x[:, :, :, None, :, None], 0.0)
+    return out.reshape(n, c, 2 * h, 2 * w)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """``[N, C*r*r, H, W] -> [N, C, H*r, W*r]``: channel ``c*r*r + dy*r +
+    dx`` goes to offset (dy, dx) of channel c."""
+    return F.pixel_shuffle(x, r)
 
 
 def _channels_last_op(fn, x: torch.Tensor) -> torch.Tensor:

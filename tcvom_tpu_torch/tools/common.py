@@ -5,7 +5,7 @@ from __future__ import annotations
 import argparse
 import re
 
-from tcvom_tpu_torch.models.registry import build_model
+from tcvom_tpu_torch.models.registry import build_model, method_of
 from tcvom_tpu_torch.utils.checkpoint import load_weights, read_state_dict
 
 MODELS = ["gca", "dim", "fba", "index"]
@@ -19,8 +19,9 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
 
 
 def encoder_depth(sd: dict) -> tuple[int, ...]:
-    """Blocks per encoder stage of a state_dict (``encoder.layer<i>.<j>.``
-    keys); the published depth if it holds none."""
+    """Blocks per encoder stage of an FBA state_dict (``encoder.layer<i>.<j>.``
+    keys, the ResNet's stages); the published depth if it holds none. Only
+    FBA's encoder takes a depth: IndexNet's has keys of that form too."""
     blocks = {}
     for k in sd:
         m = re.match(r"encoder\.layer([1-4])\.(\d+)\.", k)
@@ -33,11 +34,13 @@ def encoder_depth(sd: dict) -> tuple[int, ...]:
 
 
 def load_model(name: str, args, agg_window: int = 7):
-    """``name`` built on ``args.device`` at the encoder depth of the
-    checkpoint ``args.load``, with its weights; the checkpoint's missing
+    """``name`` built on ``args.device`` (FBA at the encoder depth of the
+    checkpoint ``args.load``), with its weights; the checkpoint's missing
     and unexpected keys are printed."""
     sd = read_state_dict(args.load)
-    model = build_model(name, agg_window=agg_window, layers=encoder_depth(sd),
+    layers = (encoder_depth(sd) if method_of(name) == "fba"
+              else PUBLISHED_LAYERS)
+    model = build_model(name, agg_window=agg_window, layers=layers,
                         device=args.device)
     missing, unexpected = load_weights(model, sd)
     print(f"loaded {args.load}: {len(missing)} missing keys "

@@ -100,6 +100,14 @@ class MattingTrainer:
                  device: str | torch.device = "cuda"):
         if driver not in ("vmd", "single"):
             raise ValueError(driver)
+        if task_cfg.method != "fba":
+            # DIM's and IndexNet's BatchNorm would update its running
+            # variance with torch's unbiased batch variance, the JAX
+            # package with the biased one: a silent drift from the reference
+            raise NotImplementedError(
+                f"training {task_cfg.model!r} needs BatchNorm's training "
+                "semantics held against the JAX package: ROADMAP.md Queue 1 "
+                "item 11")
         self.cfg = task_cfg
         self.device = resolve_device(device)
         self.layers = tuple(layers)

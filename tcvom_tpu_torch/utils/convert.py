@@ -4,7 +4,9 @@ The port's module names are the reference PyTorch ``state_dict`` keys, so
 the JAX package's own converter (``convert_state_dict``) reads a port
 ``state_dict`` back; this module goes the other way, so weights carry across
 in both directions. Layout: HWIO -> OIHW for conv kernels, ``scale`` ->
-``weight`` for norms.
+``weight`` for norms; BatchNorm's ``batch_stats`` ``mean`` and ``var`` ->
+``running_mean`` and ``running_var``. ``num_batches_tracked`` has no JAX
+counterpart: the module keeps its own (load with ``strict=False``).
 """
 from __future__ import annotations
 
@@ -36,10 +38,75 @@ _FBA_RULES = [
     (r"^fam/(key|query|value)_conv$", r"decoder.fam.\1_conv"),
 ]
 
+
+def _dim_rules(vmn: bool) -> list[tuple[str, str]]:
+    """The inverse of tcvom_tpu/utils/convert.py::_dim_rules: the
+    single-frame DIM's keys have no ``encoder.``/``decoder.`` prefix."""
+    enc, dec = ("encoder.", "decoder.") if vmn else ("", "")
+    return [
+        (r"^encoder/block(\d)(\d)/(conv|bn)$", enc + r"\3\1\2"),
+        (r"^encoder/conv6$", enc + "conv6"),
+        (r"^decoder/(dconv\d|alpha_pred)$", dec + r"\1"),
+        (r"^fam/(key|query|value)_conv$", r"decoder.fam.\1_conv"),
+    ]
+
+
+_IR_SLOTS = {"1": {"dw": 0, "dw_bn": 1, "pw_linear": 3, "pw_linear_bn": 4},
+             "[2-7]": {"pw": 0, "pw_bn": 1, "dw": 3, "dw_bn": 4,
+                       "pw_linear": 6, "pw_linear_bn": 7}}
+
+
+def _index_rules() -> list[tuple[str, str]]:
+    """The inverse of tcvom_tpu/utils/convert.py::_index_rules."""
+    pp = r"^encoder/dconv_pp/"
+    aspp = r"encoder.dconv_pp.aspp\1.atrous_conv."
+    rules = [
+        (r"^encoder/layer0/conv$", "encoder.layer0.0"),
+        (r"^encoder/layer0/bn$", "encoder.layer0.1"),
+        (r"^encoder/index(\d)/indexnet(\d)_conv0$",
+         r"encoder.index\1.indexnet\2.0"),
+        (r"^encoder/index(\d)/indexnet(\d)_bn$",
+         r"encoder.index\1.indexnet\2.1"),
+        (r"^encoder/index(\d)/indexnet(\d)_conv1$",
+         r"encoder.index\1.indexnet\2.3"),
+        (pp + r"aspp(1)_conv$", aspp + "0"),
+        (pp + r"aspp(1)_bn$", aspp + "1"),
+        (pp + r"aspp([234])_dw$", aspp + "0"),
+        (pp + r"aspp([234])_dw_bn$", aspp + "1"),
+        (pp + r"aspp([234])_pw$", aspp + "3"),
+        (pp + r"aspp([234])_pw_bn$", aspp + "4"),
+        (pp + r"global_conv$", "encoder.dconv_pp.global_avg_pool.1"),
+        (pp + r"global_bn$", "encoder.dconv_pp.global_avg_pool.2"),
+        (pp + r"bottleneck_conv$", "encoder.dconv_pp.bottleneck_conv.0"),
+        (pp + r"bottleneck_bn$", "encoder.dconv_pp.bottleneck_conv.1"),
+        (r"^decoder/(decoder_layer\d)/dconv/conv$", r"decoder.\1.dconv.0"),
+        (r"^decoder/(decoder_layer\d)/dconv/bn$", r"decoder.\1.dconv.1"),
+        (r"^decoder/pred/p0/conv$", "decoder.pred.0.0"),
+        (r"^decoder/pred/p0/bn$", "decoder.pred.0.1"),
+        (r"^decoder/pred/p1$", "decoder.pred.1"),
+        (r"^fam/(key|query|value)_conv$", r"decoder.fam.\1_conv"),
+    ]
+    # the inverted residuals' Sequential indices: expand ratio 1 in layer1
+    # (no expanding 1x1), 6 in the others
+    rules += [(rf"^encoder/layer({layers})_(\d+)/{name}$",
+               rf"encoder.layer\1.\2.conv.{j}")
+              for layers, slots in _IR_SLOTS.items()
+              for name, j in slots.items()]
+    return rules
+
+
+_RULES = {"vmn_fba": _FBA_RULES, "dim": _dim_rules(False),
+          "vmn_dim": _dim_rules(True), "index": _index_rules(),
+          "vmn_index": _index_rules()}
+
+# collection -> leaf -> (torch name, transform)
 _LEAVES = {
-    "kernel": ("weight", lambda a: np.transpose(a, (3, 2, 0, 1))),  # HWIO->OIHW
-    "scale": ("weight", None),
-    "bias": ("bias", None),
+    "params": {
+        "kernel": ("weight", lambda a: np.transpose(a, (3, 2, 0, 1))),  # HWIO->OIHW
+        "scale": ("weight", None),
+        "bias": ("bias", None),
+    },
+    "batch_stats": {"mean": ("running_mean", None), "var": ("running_var", None)},
 }
 
 
@@ -54,24 +121,28 @@ def _flatten(tree: dict, prefix: str = ""):
 
 def jax_to_torch_state_dict(model_name: str, variables: dict
                             ) -> dict[str, torch.Tensor]:
-    """Convert the JAX package's variables (nested dicts of arrays, with a
-    ``params`` collection) to the port's ``state_dict``. Raises on any
-    leaf it cannot place."""
-    if model_name != "vmn_fba":
+    """Convert the JAX package's variables (nested dicts of arrays: the
+    ``params`` collection and, for BatchNorm, ``batch_stats``) to the
+    port's ``state_dict``. Raises on any leaf it cannot place."""
+    if model_name not in _RULES:
         raise NotImplementedError(
             f"{model_name!r} is not ported yet: ROADMAP.md Queue 1 item 10")
-    rules = [(re.compile(p), t) for p, t in _FBA_RULES]
+    rules = [(re.compile(p), t) for p, t in _RULES[model_name]]
     out: dict[str, torch.Tensor] = {}
-    for path, val in _flatten(variables["params"]):
-        module, leaf = path.rsplit("/", 1)
-        for pat, tmpl in rules:
-            m = pat.match(module)
-            if m and leaf in _LEAVES:
-                name, tf = _LEAVES[leaf]
-                arr = np.asarray(val, dtype=np.float32)
-                out[f"{m.expand(tmpl)}.{name}"] = torch.tensor(
-                    tf(arr) if tf else arr)
-                break
-        else:
-            raise KeyError(f"no port parameter for JAX leaf {path}")
+    for coll, tree in variables.items():
+        leaves = _LEAVES.get(coll)
+        if leaves is None:
+            raise KeyError(f"no port buffers for JAX collection {coll!r}")
+        for path, val in _flatten(tree):
+            module, leaf = path.rsplit("/", 1)
+            for pat, tmpl in rules:
+                m = pat.match(module)
+                if m and leaf in leaves:
+                    name, tf = leaves[leaf]
+                    arr = np.asarray(val, dtype=np.float32)
+                    out[f"{m.expand(tmpl)}.{name}"] = torch.tensor(
+                        tf(arr) if tf else arr)
+                    break
+            else:
+                raise KeyError(f"no port parameter for JAX leaf {coll}/{path}")
     return out

@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from tcvom_tpu_torch.infer.predict import StreamingPredictor
-from tcvom_tpu_torch.models.full_model import TaskConfig
-from tcvom_tpu_torch.models.registry import build_model
+from tcvom_tpu_torch.models.full_model import TaskConfig, forward_eval
+from tcvom_tpu_torch.models.registry import (build_model,
+                                             calibrate_random_weights)
 from tcvom_tpu_torch.ops import cuda_build, edt_kernel, fam, fam_kernel
+from tcvom_tpu_torch.ops.image import max_pool_argmax_2x2, max_unpool_2x2
 
 pytestmark = pytest.mark.cuda
 
@@ -237,20 +239,29 @@ def test_launch_counts(dev, rng):
                                    "edt_row": 1}
 
 
-def test_stream_on_card_matches_cpu(dev, rng):
-    """Small f32 stream through both kernels against the CPU (plain) run of
-    the same weights: uint8 mattes within one level."""
-    model = build_model("vmn_fba", agg_window=3, layers=(1, 1, 1, 1),
+@pytest.mark.parametrize("name", ["vmn_fba", "vmn_dim", "vmn_index"])
+def test_stream_on_card_matches_cpu(dev, rng, name):
+    """Small f32 stream through both kernels (FBA; the FAM kernel alone at
+    C = 256 for DIM and C = 32 for IndexNet, whose weights are first
+    calibrated so that the mattes are not all 0) against the CPU (plain)
+    run of the same weights: uint8 mattes within one level."""
+    model = build_model(name, agg_window=3, layers=(1, 1, 1, 1),
                         device="cpu")
-    cfg = TaskConfig(model="vmn_fba", agg_window=3)
+    cfg = TaskConfig(model=name, agg_window=3)
     imgs = rng.randint(0, 256, (3, 1, 64, 96, 3)).astype(np.uint8)
     tri = np.zeros((1, 64, 96, 1), np.uint8)
     tri[:, 10:50, 10:80] = 128
     tri[:, 25:35, 30:60] = 255
+    if name != "vmn_fba":
+        clip = (torch.from_numpy(imgs[None, :, 0]).float(),
+                torch.from_numpy(np.stack([tri] * 3, 1)).float())
+        calibrate_random_weights(model, lambda: forward_eval(model, *clip,
+                                                             cfg))
     outs = {}
     for where in ("cpu", "cuda"):
         sp = StreamingPredictor(model, cfg, fgbg=False, quantize=True,
                                 device=where)
+        cuda_build.LAUNCHES.clear()
         state, res = None, []
         for img in imgs:
             state, o = sp.step(state, img, tri)
@@ -258,5 +269,24 @@ def test_stream_on_card_matches_cpu(dev, rng):
                 res.append(o.cpu().numpy())
         res.append(sp.flush(state).cpu().numpy())
         outs[where] = np.stack(res).astype(int)
+        want = ({} if where == "cpu" else {"fam_window": 3} if
+                name != "vmn_fba" else {"fam_window": 3, "edt_row": 3})
+        assert cuda_build.LAUNCHES == want
+    unknown = np.broadcast_to(tri[..., 0] == 128, outs["cpu"].shape)
+    assert ((outs["cpu"][unknown] > 0) & (outs["cpu"][unknown] < 255)
+            ).mean() > 0.1
     diff = np.abs(outs["cpu"] - outs["cuda"])
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_argmax_pool_on_card_matches_cpu(dev, rng, dtype):
+    """DIM's pool and unpool on the card, with exact ties in windows (ReLU's
+    zeros and repeated values), against the CPU's: the same first max."""
+    x = torch.from_numpy(rng.randint(-2, 3, (2, 8, 34, 50)).astype(
+        np.float32)).clamp_min(0).to(dtype)
+    want = max_pool_argmax_2x2(x)
+    got = max_pool_argmax_2x2(x.to(dev))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(max_unpool_2x2(*got).cpu(), max_unpool_2x2(*want))

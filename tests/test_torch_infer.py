@@ -265,4 +265,4 @@ def test_pipelines_need_a_card_or_an_explicit_cpu(models, wild, tmp_path):
                                wild, str(tmp_path), dtype=torch.bfloat16,
                                device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("dim", device="cpu")
+        build_model("gca", device="cpu")

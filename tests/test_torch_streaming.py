@@ -124,4 +124,4 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(setup):
     with pytest.raises(RuntimeError, match="CUDA"):
         TSP(setup[2], TFM.TaskConfig(model="vmn_fba"), fgbg=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("vmn_dim", device="cpu")
+        build_model("vmn_gca", device="cpu")

@@ -1,7 +1,9 @@
-"""The port's command-line tools on the CPU (``--device cpu``) at a small
-depth (the tools build the depth their checkpoint holds): pred_test over a root of videos with --shard, pred_vmn then
-calc_metric on a fake VideoMatting108 tree with the zlib PNG codec standing
-in for OpenCV, pred_single, and the flags that are not ported yet."""
+"""The port's command-line tools on the CPU (``--device cpu``), FBA at a small
+depth (the tools build the depth an FBA checkpoint holds): pred_test over a
+root of videos with --shard, pred_vmn (FBA, IndexNet) then calc_metric on a
+fake VideoMatting108 tree with the zlib PNG codec standing in for OpenCV,
+pred_single (FBA, DIM), and the flags that are not ported yet."""
+import argparse
 import json
 import os
 
@@ -10,8 +12,8 @@ import pytest
 import torch
 
 from tcvom_tpu_torch.models.registry import build_model
-from tcvom_tpu_torch.tools import (calc_metric, make_fake_dataset, pred_single,
-                                   pred_test, pred_vmn)
+from tcvom_tpu_torch.tools import (calc_metric, common, make_fake_dataset,
+                                   pred_single, pred_test, pred_vmn)
 from tcvom_tpu_torch.tools.common import PUBLISHED_LAYERS, encoder_depth
 from tcvom_tpu_torch.utils import imageio as IO
 from tcvom_tpu_torch.utils.checkpoint import save_weights
@@ -23,7 +25,7 @@ CPU = ["--device", "cpu"]
 def ckpts(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ckpt")
     out = {}
-    for name in ("vmn_fba", "fba"):
+    for name in ("vmn_fba", "fba", "dim", "vmn_index"):
         out[name] = str(tmp / f"{name}.pth")
         save_weights(build_model(name, agg_window=3, layers=(1, 1, 1, 1),
                                  device="cpu"), out[name])
@@ -65,11 +67,13 @@ def test_pred_test_shards_videos(ckpts, tmp_path):
                                "--shard", "2/2"])
 
 
-def test_pred_vmn_then_calc_metric(ckpts, tmp_path, zlib_codec):
+@pytest.mark.parametrize("model", ["fba", "index"])
+def test_pred_vmn_then_calc_metric(ckpts, tmp_path, zlib_codec, model):
     data, save = str(tmp_path / "vmd"), str(tmp_path / "pred")
     make_fake_dataset.make(data, frames=3, hw=(64, 96))
-    losses = pred_vmn.main(["--model", "fba", "--data", data, "--load",
-                            ckpts["vmn_fba"], "--trimap", "medium", "--save",
+    losses = pred_vmn.main(["--model", model, "--data", data, "--load",
+                            ckpts["vmn_" + model], "--trimap", "medium",
+                            "--save",
                             save, "--agg_window", "3", "--batch", "2",
                             "--image_shape", "64", "96", "--n_threads", "0"]
                            + CPU)
@@ -91,11 +95,12 @@ def test_pred_vmn_then_calc_metric(ckpts, tmp_path, zlib_codec):
         assert np.isfinite(agg["avg"][k]), k
 
 
-def test_pred_single(ckpts, tmp_path):
+@pytest.mark.parametrize("model", ["fba", "dim"])
+def test_pred_single(ckpts, tmp_path, model):
     data, save = str(tmp_path / "vmd"), str(tmp_path / "pred")
     make_fake_dataset.make(data, frames=2, hw=(64, 64))
-    res = pred_single.main(["--model", "fba", "--data", data, "--load",
-                            ckpts["fba"], "--trimap", "narrow", "--save",
+    res = pred_single.main(["--model", model, "--data", data, "--load",
+                            ckpts[model], "--trimap", "narrow", "--save",
                             save, "--image_shape", "64", "64",
                             "--n_threads", "0", "--batch", "2"] + CPU)
     assert set(res) == {"mSAD", "MSE"} and 0 < res["mSAD"] < 1
@@ -113,7 +118,7 @@ def test_tools_raise_for_what_is_not_ported(ckpts, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pred_vmn.main(["--model", "fba", "--space", "2"] + base)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pred_test.main(["--model", "dim", "--vmn", "--load", ckpts["fba"],
+        pred_test.main(["--model", "gca", "--vmn", "--load", ckpts["fba"],
                         "--data", str(tmp_path), "--save", str(tmp_path),
                         "v"] + CPU)
     if not torch.cuda.is_available():
@@ -129,6 +134,25 @@ def test_tools_build_the_checkpoints_depth():
         assert encoder_depth(sd) == layers
     assert encoder_depth({"decoder.conv_up4.0.weight": None}) == \
         PUBLISHED_LAYERS
+
+
+def test_tools_take_no_depth_from_other_backbones(ckpts, monkeypatch):
+    """IndexNet's keys have the form of a ResNet's stages
+    (``encoder.layer1.0.conv.0``); only FBA's build reads a depth there."""
+    sd = torch.load(ckpts["vmn_index"])
+    assert encoder_depth(sd) != PUBLISHED_LAYERS
+    built = []
+
+    def spy(name, **kw):
+        built.append(kw["layers"])
+        return build_model(name, **kw)
+
+    monkeypatch.setattr(common, "build_model", spy)
+    args = argparse.Namespace(load=ckpts["vmn_index"], device="cpu")
+    common.load_model("vmn_index", args, agg_window=3)
+    common.load_model("vmn_fba", argparse.Namespace(
+        load=ckpts["vmn_fba"], device="cpu"), agg_window=3)
+    assert built == [PUBLISHED_LAYERS, (1, 1, 1, 1)]
 
 
 @pytest.mark.parametrize("tool", [pred_test, pred_vmn, pred_single,

@@ -353,3 +353,11 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TT.MattingTrainer(cfg, "vmd")
         TT.MattingTrainer(cfg, "vmd", device="cpu")
+
+
+@pytest.mark.parametrize("model", ["vmn_dim", "index"])
+def test_trainer_refuses_batchnorm_backbones(model):
+    """BatchNorm's running-variance update differs from the JAX package's
+    (unbiased against biased), so DIM and IndexNet do not train yet."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+        TT.MattingTrainer(TFM.TaskConfig(model=model), "vmd", device="cpu")
