@@ -40,23 +40,27 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    clips): one step through the kernels against one through the plain
    versions (losses, gradients, launch counts), five more steps (finite
    losses, ms, peak memory) and one validation step (B=6, S=3, 544x960);
-9. fam_c32: both FAM entries at IndexNet's width, [2, 136, 240, 32],
-   against the plain version, timed by the profiler's device time (a
-   launch there runs shorter than its call from Python takes), with their
-   bounds;
-10. the DIM and IndexNet streams (vmn_dim, FAM at C = 256; vmn_index, C =
-   32; both 1088x1920, window 7, random weights from seed 0, no EDT: their
-   trimap is one channel): main_<name>_f32 (4 frames, kernels against plain
-   versions within one level, >= 99.9 % identical) and main_<name>_bf16
-   (12 frames, against the plain versions within BF16_BACKBONE, beside
-   what the TPU kernel's own bf16 weights move the stream by), each with
+9. fam_c32, fam_c128: both FAM entries at IndexNet's width, [2, 136,
+   240, 32], and at GCA's, [2, 136, 240, 128], against the plain version,
+   timed by the profiler's device time (at C = 32 a launch runs shorter
+   than its call from Python takes; the CUDA-event time is printed
+   beside), with their bounds;
+10. the DIM, IndexNet and GCA streams (vmn_dim, FAM at C = 256;
+   vmn_index, C = 32; vmn_gca, C = 128; all 1088x1920, window 7, random
+   weights from seed 0, GCA's spectral-norm u and v set to its weights'
+   leading singular vectors; no EDT: their trimaps are one channel or a
+   one-hot): main_<name>_f32 (4 frames, kernels against plain versions
+   within one level, >= 99.9 % identical) and main_<name>_bf16 (12
+   frames, against the plain versions within BF16_BACKBONE, beside what
+   the TPU kernel's own bf16 weights move the stream by), each with
    launches {"fam_window": n}, known pixels pasted exactly and the share
    of unknown pixels strictly between 0 and 255 (under 1 %, the weights
-   are calibrated first: calibrate_random_weights); times and memory;
-11. pred_single --model dim on pred_vmn's clip (f32; finite mSAD and MSE,
-   the PNGs, seconds per sample, no kernel launched) and pred_vmn --model
-   index on it (f32; one fam_window_logits launch per sample, finite
-   losses, the PNGs).
+   are calibrated first: calibrate_random_weights); times and memory; for
+   GCA the attention core's own time;
+11. pred_single --model dim and --model gca on pred_vmn's clip (f32;
+   finite mSAD and MSE, the PNGs, seconds per sample, no kernel launched)
+   and pred_vmn --model index and --model gca on it (f32; one
+   fam_window_logits launch per sample, finite losses, the PNGs).
 
 The line before the last lists every kernel row on every path that runs
 it (name, route, source, the TPU kernel it replaces, the path, launches
@@ -103,9 +107,11 @@ BF16_STREAM = {"max_level_diff": 32, "identical_share": 0.975}
 # and by the kernel 5 levels, 96.495 % (measured once on the H100, PERF.md):
 # its limit admits the TPU kernel's own precision with 2 levels and ~0.5
 # points to spare, as BF16_STREAM does for FBA. IndexNet's stream (1 level,
-# 99.9994 % from the TPU's rounding) stays within BF16_STREAM.
+# 99.9994 % from the TPU's rounding) stays within BF16_STREAM, and so does
+# GCA's (1 level, 99.850 % from the TPU's rounding; the kernel 1 level,
+# 99.981 %; measured once on the H100, PERF.md).
 BF16_BACKBONE = {"dim": {"max_level_diff": 8, "identical_share": 0.958},
-                 "index": BF16_STREAM}
+                 "index": BF16_STREAM, "gca": BF16_STREAM}
 # share of the unknown pixels (trimap 128) whose matte must lie strictly
 # between 0 and 255 before a comparison of mattes says something
 LIVE_SHARE = 0.01
@@ -507,16 +513,16 @@ def check_fam_logits(fam, fam_kernel):
     return res
 
 
-def check_fam_c32(fam, fam_kernel):
+def check_fam_width(fam, fam_kernel, c: int, seed: int):
     """Kernel B (``fam_window``) in f32 and bf16 and the logits entry
-    (kernels C/D) in f32 at IndexNet's [prev; next] batch, [2, 136, 240,
-    32], window 7, each held against the plain version and timed: at this
-    width a launch runs shorter than the wrapper's call takes, so its
-    ``ms`` is the profiler's device time (the CUDA-event time beside it,
-    ``event_ms``, is the launch rate). Returns the times by dtype, and the
-    logits entry's under "logits"."""
-    rng = np.random.RandomState(9)
-    shape, res = (2, H // 8, W // 8, 32), {}
+    (kernels C/D) in f32 at a backbone's [prev; next] batch, [2, 136, 240,
+    c], window 7, each held against the plain version and timed: ``ms``
+    is the profiler's device time (at C = 32 a launch runs shorter than
+    the wrapper's call takes; the CUDA-event time beside it, ``event_ms``,
+    is the launch rate). Returns the times by dtype, and the logits
+    entry's under "logits"."""
+    rng = np.random.RandomState(seed)
+    shape, res = (2, H // 8, W // 8, c), {}
     for dtype in (torch.float32, torch.bfloat16):
         (q, k, m), errs = hold_fam(fam, fam_kernel, rng, shape, WINDOW,
                                    dtype)
@@ -530,7 +536,7 @@ def check_fam_c32(fam, fam_kernel):
                            "fam_window_mma_kernel")
             plain_ms = time_ms(lambda: fam.fam_attention_ref(q, k, m, WINDOW),
                                3)
-            b_ms, b_by = bound(*fam_counts(m, 32, WINDOW, logits=logits),
+            b_ms, b_by = bound(*fam_counts(m, c, WINDOW, logits=logits),
                                dtype)
             err = max(v for e, v in errs.items() if e.startswith(name + " "))
             res[key] = dict(shape=list(shape), dtype=str(dtype),
@@ -814,15 +820,16 @@ def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
     return counts, val_counts
 
 
-def stream_tflop(model) -> tuple[float, float]:
-    """TFLOP of one encode (encoder, extract half, FAM projections) and
-    of one decoder head of the VMN ``model`` at H x W, counted by
-    torch.utils.flop_counter on a copy on the meta device (the FAM
-    attention between them is the kernel's, counted in its own row)."""
+def stream_tflop(model, in_channels: int) -> tuple[float, float]:
+    """TFLOP of one encode (encoder, extract half, FAM projections; GCA's
+    attention products included) and of one decoder head of the VMN
+    ``model`` at H x W, counted by torch.utils.flop_counter on a copy on
+    the meta device (the FAM attention between them is the kernel's,
+    counted in its own row)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     meta = copy.deepcopy(model).to("meta")
-    x = torch.zeros(1, 4, H, W, device="meta")
+    x = torch.zeros(1, in_channels, H, W, device="meta")
     with torch.no_grad(), FlopCounterMode(display=False) as enc:
         feats, qkv = meta.encode_extract_qkv(x)
     with torch.no_grad(), FlopCounterMode(display=False) as head:
@@ -833,24 +840,29 @@ def stream_tflop(model) -> tuple[float, float]:
 
 def backbone_phase(name: str, fam, edt_kernel, cuda_build,
                    profile_path=None) -> dict:
-    """The stream of ``vmn_<name>`` (DIM or IndexNet) at 1088x1920, random
-    weights from seed 0, as phases 4 and 5 drive FBA's: 4 frames in f32,
-    then 12 in bf16, each through the kernels (launches counted) and
-    through the plain versions; the bf16 plain path also with the TPU
-    kernel's rounding of its weights. If the f32 mattes are saturated
-    (under LIVE_SHARE of the unknown pixels strictly between 0 and 255),
-    the weights are calibrated on three frames first. Returns the f32 and
-    bf16 launches."""
+    """The stream of ``vmn_<name>`` (DIM, IndexNet or GCA) at 1088x1920,
+    random weights from seed 0 (GCA's spectral-norm u and v then set to
+    its weights' leading singular vectors: drawn at random they give
+    sigma near 0 and of either sign), as phases 4 and 5 drive FBA's: 4
+    frames in f32, then 12 in bf16, each through the kernels (launches
+    counted) and through the plain versions; the bf16 plain path also with
+    the TPU kernel's rounding of its weights. If the f32 mattes are
+    saturated (under LIVE_SHARE of the unknown pixels strictly between 0
+    and 255), the weights are calibrated on three frames first. Returns
+    the f32 and bf16 launches."""
     from tcvom_tpu_torch.infer.predict import StreamingPredictor
     from tcvom_tpu_torch.models.full_model import TaskConfig, forward_eval
     from tcvom_tpu_torch.models.registry import (build_model,
-                                                 calibrate_random_weights)
+                                                 calibrate_random_weights,
+                                                 converge_spectral_norms)
 
     frames = make_frames(12)
     cfg = TaskConfig(model="vmn_" + name, agg_window=WINDOW)
     model = build_model(cfg.model, agg_window=WINDOW,
                         generator=torch.Generator().manual_seed(0))
-    enc_tflop, head_tflop = stream_tflop(model)
+    if name == "gca":
+        converge_spectral_norms(model)
+    enc_tflop, head_tflop = stream_tflop(model, 3 + cfg.trimap_channels)
 
     def f32_stream():
         sp32 = StreamingPredictor(model, cfg, fgbg=False, quantize=True)
@@ -927,31 +939,63 @@ def backbone_phase(name: str, fam, edt_kernel, cuda_build,
         state, _ = sp.step(state, img, tri)
 
     step_ms = host_ms(one_step, 10)
+    extra = {}
+    if name == "gca":
+        extra["attention_core_ms"] = gca_core_ms()
     emit(phase=f"main_{name}_bf16", frames=n, launches=counts,
          encode_ms=enc_ms, decode_ms=dec_ms, step_ms=step_ms,
          fps=1e3 / step_ms, max_memory_allocated_gib=mem_gib,
          encode_tflop=enc_tflop, head_tflop=head_tflop,
-         step_tflop_per_s=(enc_tflop + head_tflop) / step_ms * 1e3)
+         step_tflop_per_s=(enc_tflop + head_tflop) / step_ms * 1e3, **extra)
     if profile_path:
         profile_steps(one_step, 2, profile_path, f"profile_{name}_bf16")
     return {"f32": f32_counts, "bf16": counts}
 
 
-def pred_single_phase(tmp, root, cuda_build):
-    """tools/pred_single.py with the single-frame DIM (random weights from
-    seed 0, through a .pth) on pred_vmn's clip: f32, B = 1, 1088x1920,
-    medium trimaps, the samples read in this process. No kernel is on this
-    path: the trimap is one channel and there is no FAM."""
-    from tcvom_tpu_torch.models.registry import build_model
-    from tcvom_tpu_torch.tools import pred_single
+def gca_core_ms() -> float:
+    """CUDA-event ms of one call of GCA's attention core at the bf16
+    stream's shapes (guidance [1, 64, 68, 120], features [1, 128, 136,
+    240], a random unknown mask; two calls an encode)."""
+    from tcvom_tpu_torch.ops.gca_attention import guided_attention_core
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    f, alpha = (torch.randn(shape, device="cuda", generator=g).to(
+        torch.bfloat16) for shape in ((1, 64, H // 16, W // 16),
+                                      (1, 128, H // 8, W // 8)))
+    unk = (torch.rand((1, 1, H // 16, W // 16), device="cuda", generator=g)
+           > 0.6).to(torch.bfloat16)
+    with torch.inference_mode():
+        return time_ms(lambda: guided_attention_core(f, alpha, unk), 10)
+
+
+def random_checkpoint(name: str, tmp):
+    """A .pth of ``name`` with random weights from seed 0 (GCA's
+    spectral-norm u and v set to its weights' singular vectors, as in
+    backbone_phase)."""
+    from tcvom_tpu_torch.models.registry import (build_model,
+                                                 converge_spectral_norms)
     from tcvom_tpu_torch.utils.checkpoint import save_weights
 
-    ckpt, save = tmp / "dim.pth", tmp / "pred_single"
-    save_weights(build_model("dim", generator=torch.Generator().manual_seed(0)),
-                 str(ckpt))
+    model = build_model(name, agg_window=WINDOW,
+                        generator=torch.Generator().manual_seed(0))
+    if name.endswith("gca"):
+        converge_spectral_norms(model)
+    path = tmp / f"{name}.pth"
+    save_weights(model, str(path))
+    return path
+
+
+def pred_single_phase(name: str, tmp, root, cuda_build):
+    """tools/pred_single.py with the single-frame ``name`` (DIM or GCA,
+    random weights through a .pth) on pred_vmn's clip: f32, B = 1,
+    1088x1920, medium trimaps, the samples read in this process. No kernel
+    is on this path: there is no FAM, and neither trimap has an EDT."""
+    from tcvom_tpu_torch.tools import pred_single
+
+    ckpt, save = random_checkpoint(name, tmp), tmp / f"pred_single_{name}"
     cuda_build.LAUNCHES.clear()
     t0 = time.perf_counter()
-    res = pred_single.main(["--model", "dim", "--dataset", "vmd", "--data",
+    res = pred_single.main(["--model", name, "--dataset", "vmd", "--data",
                             str(root), "--load", str(ckpt), "--trimap",
                             "medium", "--save", str(save), "--batch", "1",
                             "--image_shape", str(H), str(W),
@@ -960,34 +1004,30 @@ def pred_single_phase(tmp, root, cuda_build):
     secs = time.perf_counter() - t0
     counts = dict(cuda_build.LAUNCHES)
     written = sorted(p.name for p in (save / "clip_b").iterdir())
-    emit(phase="pred_single", model="dim", samples=4, shape=[1, 3, H, W],
+    emit(phase="pred_single", model=name, samples=4, shape=[1, 3, H, W],
          result=res, seconds=secs, s_per_sample=secs / 4, launches=counts,
          written=len(written))
     if counts:
-        fail(f"pred_single dim launched kernels: {counts}")
+        fail(f"pred_single {name} launched kernels: {counts}")
     if not all(np.isfinite(v) for v in res.values()):
-        fail(f"pred_single results {res}")
+        fail(f"pred_single {name} results {res}")
     if written != [f"{i:05d}_{k}.png" for i in range(4)
                    for k in ("pred", "tri")]:
-        fail(f"pred_single wrote {written}")
+        fail(f"pred_single {name} wrote {written}")
 
 
-def pred_vmn_index_phase(tmp, root, cuda_build):
-    """tools/pred_vmn.py with vmn_index (random weights from seed 0,
-    through a .pth) on the same clip, the samples read in this process
-    (the spawned loader's start is timed in the FBA sweep). Returns the
-    launches."""
-    from tcvom_tpu_torch.models.registry import build_model
+def pred_vmn_backbone_phase(name: str, tmp, root, cuda_build):
+    """tools/pred_vmn.py with ``vmn_<name>`` (IndexNet or GCA, random
+    weights through a .pth) on the same clip, the samples read in this
+    process (the spawned loader's start is timed in the FBA sweep).
+    Returns the launches."""
     from tcvom_tpu_torch.tools import pred_vmn
-    from tcvom_tpu_torch.utils.checkpoint import save_weights
 
-    ckpt, save = tmp / "vmn_index.pth", tmp / "pred_vmn_index"
-    save_weights(build_model("vmn_index", agg_window=WINDOW,
-                             generator=torch.Generator().manual_seed(0)),
-                 str(ckpt))
+    ckpt = random_checkpoint("vmn_" + name, tmp)
+    save = tmp / f"pred_vmn_{name}"
     cuda_build.LAUNCHES.clear()
     t0, sweep = time.perf_counter(), {}
-    losses = pred_vmn.main(["--model", "index", "--data", str(root),
+    losses = pred_vmn.main(["--model", name, "--data", str(root),
                             "--load", str(ckpt), "--trimap", "medium",
                             "--save", str(save), "--agg_window", str(WINDOW),
                             "--batch", "1", "--image_shape", str(H), str(W),
@@ -996,16 +1036,17 @@ def pred_vmn_index_phase(tmp, root, cuda_build):
     secs = time.perf_counter() - t0
     counts = dict(cuda_build.LAUNCHES)
     written = sorted(p.name for p in (save / "clip_b").iterdir())
-    emit(phase="pred_vmn_index", samples=4, shape=[1, 3, H, W],
+    emit(phase=f"pred_vmn_{name}", samples=4, shape=[1, 3, H, W],
          launches=counts, losses=losses, sweep_s=secs,
-         s_per_sample=secs / 4, sweep_phases_s=sweep, written=len(written))
+         s_per_sample=secs / 4, sweep_phases_s=sweep, written=len(written),
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     if counts != {"fam_window_logits": 4}:
-        fail(f"pred_vmn index launch counts {counts}, want 4")
+        fail(f"pred_vmn {name} launch counts {counts}, want 4")
     if not all(np.isfinite(v) for v in losses.values()):
-        fail(f"pred_vmn index losses {losses}")
+        fail(f"pred_vmn {name} losses {losses}")
     if written != [f"{i:05d}_{k}.png" for i in range(4)
                    for k in ("pred", "tri")]:
-        fail(f"pred_vmn index wrote {written}")
+        fail(f"pred_vmn {name} wrote {written}")
     return counts
 
 
@@ -1144,19 +1185,25 @@ def main():
                                            args.profile)
     torch.cuda.empty_cache()
 
-    # -- 9. the FAM kernels at IndexNet's width ----------------------------------
-    c32_res = check_fam_c32(fam, fam_kernel)
+    # -- 9. the FAM kernels at IndexNet's and GCA's widths ------------------------
+    c32_res = check_fam_width(fam, fam_kernel, 32, seed=9)
+    c128_res = check_fam_width(fam, fam_kernel, 128, seed=10)
 
-    # -- 10. the DIM and IndexNet streams, f32 and bf16 ---------------------------
+    # -- 10. the DIM, IndexNet and GCA streams, f32 and bf16 ----------------------
     streams = {}
-    for name in ("dim", "index"):
+    for name in ("dim", "index", "gca"):
         streams[name] = backbone_phase(name, fam, edt_kernel, cuda_build,
                                        args.profile)
         torch.cuda.empty_cache()
 
-    # -- 11. pred_single (DIM) and pred_vmn (IndexNet) on pred_vmn's clip ---------
-    pred_single_phase(tmp, root, cuda_build)
-    index_vmn_counts = pred_vmn_index_phase(tmp, root, cuda_build)
+    # -- 11. pred_single (DIM, GCA) and pred_vmn (IndexNet, GCA) on the clip ------
+    vmn_backbone_counts = {}
+    for name in ("dim", "gca"):
+        pred_single_phase(name, tmp, root, cuda_build)
+    for name in ("index", "gca"):
+        torch.cuda.reset_peak_memory_stats()
+        vmn_backbone_counts[name] = pred_vmn_backbone_phase(name, tmp, root,
+                                                            cuda_build)
     tmpdir.cleanup()
 
     # every row: the launches are its own path's (counts set to 0 just
@@ -1206,8 +1253,18 @@ def main():
              **c32_res[torch.float32]),
         dict(logits_c, path="pred_vmn_index",
              replaces="tcvom_tpu/ops/fam_pallas.py:97",
-             launches=index_vmn_counts["fam_window_logits"],
+             launches=vmn_backbone_counts["index"]["fam_window_logits"],
              **c32_res["logits"]),
+        dict(fam_b, path="stream_gca_bf16",
+             launches=streams["gca"]["bf16"]["fam_window"],
+             **c128_res[torch.bfloat16]),
+        dict(fam_b, path="stream_gca_f32",
+             launches=streams["gca"]["f32"]["fam_window"],
+             **c128_res[torch.float32]),
+        dict(logits_c, path="pred_vmn_gca",
+             replaces="tcvom_tpu/ops/fam_pallas.py:97",
+             launches=vmn_backbone_counts["gca"]["fam_window_logits"],
+             **c128_res["logits"]),
     ]
     emit(phase="wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

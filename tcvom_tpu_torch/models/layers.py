@@ -55,3 +55,84 @@ def conv_bn_relu6(cin: int, cout: int, kernel: int) -> nn.Sequential:
     return nn.Sequential(
         nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False),
         BatchNorm(cout), nn.ReLU6())
+
+
+def l2n(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """``v / (||v|| + eps)``, the power iteration's normalization."""
+    return v / (torch.linalg.vector_norm(v) + eps)
+
+
+class _SNParams(nn.Module):
+    """The parameters of a spectral-norm conv under the reference wrapper's
+    names (models/GCA/ops.py:12-80): ``weight_bar`` (OIHW for a conv, IOHW
+    for a transposed conv) and the power iteration's vectors ``weight_u``
+    (``weight_bar.shape[0]``) and ``weight_v`` (the rest of the flattened
+    weight), held as buffers. GCA's spectral-norm convs have no bias."""
+
+    def __init__(self, shape: tuple[int, ...]):
+        super().__init__()
+        self.weight_bar = nn.Parameter(torch.empty(shape))
+        width = shape[1] * shape[2] * shape[3]
+        self.register_buffer("weight_u", l2n(torch.randn(shape[0])))
+        self.register_buffer("weight_v", l2n(torch.randn(width)))
+
+
+class SNConv2d(nn.Module):
+    """Conv2d (or, with ``transpose=True``, ConvTranspose2d) wrapped in
+    spectral normalization (GCA; port of ``SNConv`` and ``SNConvRaw``,
+    tcvom_tpu/models/layers.py:127-189, 258-330). The conv runs with
+    ``weight_bar / sigma``, ``sigma = u . (W @ v)`` where ``W`` is
+    ``weight_bar`` flattened to ``[weight_bar.shape[0], -1]``: the output
+    channels of a conv, the *input* channels of a transposed conv (torch's
+    IOHW), as the reference's ``view(height, -1)`` has it.
+
+    In eval mode the stored ``u`` and ``v`` are used as they are. In
+    ``.train()`` mode one power iteration updates them first, without
+    gradient (``v = l2n(W^T u)``, ``u = l2n(W v)``); the gradient reaches
+    the weight through sigma only, as the JAX package's ``stop_gradient``s
+    of ``u`` and ``v`` have it.
+
+    Sigma and the normalized weight are computed in at least f32 and the
+    weight cast to the input's dtype. The JAX package's bf16 stream casts
+    ``u``, ``v`` and the kernel to bf16 and computes sigma in bf16
+    (tcvom_tpu/infer/predict.py:159); here a model cast to bf16 holds
+    bf16 ``u``, ``v`` and ``weight_bar`` too, but sigma is not rounded.
+
+    The transposed conv is ``F.conv_transpose2d`` on the IOHW weight, the
+    JAX package's ``conv_transpose_torch``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, transpose: bool = False):
+        super().__init__()
+        k = kernel_size
+        shape = ((in_channels, out_channels, k, k) if transpose
+                 else (out_channels, in_channels, k, k))
+        self.module = _SNParams(shape)
+        self.stride, self.padding, self.transpose = stride, padding, transpose
+
+    def _wmat(self) -> torch.Tensor:
+        w = at_least_f32(self.module.weight_bar)
+        return w.reshape(w.shape[0], -1)
+
+    @torch.no_grad()
+    def power_iteration(self) -> None:
+        """One power-iteration step on the stored ``u``, ``v``."""
+        wmat = self._wmat().detach()
+        m = self.module
+        v = l2n(wmat.t() @ at_least_f32(m.weight_u))
+        u = l2n(wmat @ v)
+        m.weight_u.copy_(u)
+        m.weight_v.copy_(v)
+
+    def sigma(self) -> torch.Tensor:
+        m = self.module
+        u, v = (at_least_f32(t).detach() for t in (m.weight_u, m.weight_v))
+        return u @ (self._wmat() @ v)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            self.power_iteration()
+        w = (at_least_f32(self.module.weight_bar) / self.sigma()).to(x.dtype)
+        if self.transpose:
+            return F.conv_transpose2d(x, w, None, self.stride, self.padding)
+        return F.conv2d(x, w, None, self.stride, self.padding)

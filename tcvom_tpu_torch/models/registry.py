@@ -6,9 +6,13 @@ import torch.nn as nn
 
 from tcvom_tpu_torch.models.dim import DeepMatting, DIMDecoder, DIMEncoder
 from tcvom_tpu_torch.models.fba import FBA, FBADecoder, FBAEncoder
+from tcvom_tpu_torch.models.gca import (GCA, DecBasicBlock, EncBasicBlock,
+                                        GCADecoder, GCAEncoder,
+                                        GuidedCxtAtten)
 from tcvom_tpu_torch.models.index import (IndexMatting, IndexMattingDecoder,
                                           IndexMattingEncoder)
-from tcvom_tpu_torch.models.layers import WSConv2d
+from tcvom_tpu_torch.models.layers import (SNConv2d, WSConv2d, at_least_f32,
+                                           l2n)
 from tcvom_tpu_torch.models.vmn import VMN
 from tcvom_tpu_torch.utils.device import resolve_device
 
@@ -20,9 +24,10 @@ FAM_CHANNELS = {"dim": 256, "gca": 128, "fba": 256, "index": 32}
 
 # the single-frame model and the VMN's (encoder, decoder) of the methods
 # whose constructors take no depth (FBA's take ``layers``)
-_SINGLE = {"dim": DeepMatting, "index": IndexMatting}
+_SINGLE = {"dim": DeepMatting, "index": IndexMatting, "gca": GCA}
 _VMN_PARTS = {"dim": (DIMEncoder, DIMDecoder),
-              "index": (IndexMattingEncoder, IndexMattingDecoder)}
+              "index": (IndexMattingEncoder, IndexMattingDecoder),
+              "gca": (GCAEncoder, GCADecoder)}
 
 
 def method_of(model_name: str) -> str:
@@ -30,12 +35,26 @@ def method_of(model_name: str) -> str:
     return model_name[model_name.rfind("_") + 1:]
 
 
+def _unit_normal(n: int, generator: torch.Generator) -> torch.Tensor:
+    return l2n(torch.randn(n, generator=generator))
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers: He-normal for weight-standardized
-    convs, Xavier-uniform for plain convs, zero biases, unit norms with
-    BatchNorm's running statistics at mean 0, variance 1."""
+    convs, Xavier-uniform for plain convs and for spectral-norm convs'
+    ``weight_bar`` (and unit normals for their ``u`` and ``v``), zero biases,
+    unit norms with BatchNorm's running statistics at mean 0, variance 1.
+    GCA's own (tcvom_tpu/models/gca.py:30-68): the trimap input channels of
+    the encoder's ``conv1`` zeroed, the residual blocks' ``bn2`` scales at
+    0, the attention's ``W`` BatchNorm scale at 1e-3."""
     with torch.no_grad():
         for m in model.modules():
+            if isinstance(m, SNConv2d):
+                p = m.module
+                nn.init.xavier_uniform_(p.weight_bar, generator=generator)
+                p.weight_u.copy_(_unit_normal(p.weight_u.numel(), generator))
+                p.weight_v.copy_(_unit_normal(p.weight_v.numel(), generator))
+                continue
             if isinstance(m, WSConv2d):
                 nn.init.kaiming_normal_(m.weight, nonlinearity="relu",
                                         generator=generator)
@@ -49,6 +68,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 continue
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
+        for m in model.modules():
+            if isinstance(m, GCAEncoder):
+                m.conv1.module.weight_bar[:, 3:] = 0.0
+            elif isinstance(m, (EncBasicBlock, DecBasicBlock)):
+                nn.init.zeros_(m.bn2.weight)
+            elif isinstance(m, GuidedCxtAtten):
+                nn.init.constant_(m.W[1].weight, 1e-3)
 
 
 def build_model(model_name: str, agg_window: int = 7, agg_reduction: int = 1,
@@ -57,19 +83,18 @@ def build_model(model_name: str, agg_window: int = 7, agg_reduction: int = 1,
                 freeze_backbone: bool = False) -> nn.Module:
     """Construct a model with random weights drawn from ``generator``
     (seed 0 if None), in eval mode on ``device`` (``.train()`` switches it,
-    as the trainer does; FBA has no layer that depends on the mode, DIM's
-    and IndexNet's BatchNorms and Dropout do). ``'vmn_<method>'`` is the
-    VMN (window ``agg_window``), ``'<method>'`` the single-frame model, for
-    the methods fba, dim and index. ``layers`` sets FBA's encoder blocks
-    per stage (depth only; widths are the published ones; DIM and IndexNet
-    ignore it); ``freeze_backbone`` runs the encoder and the extract half
-    of a VMN without gradient."""
+    as the trainer does; FBA has no layer that depends on the mode, DIM's,
+    IndexNet's and GCA's BatchNorms, IndexNet's Dropout and GCA's power
+    iteration do). ``'vmn_<method>'`` is the VMN (window ``agg_window``),
+    ``'<method>'`` the single-frame model, for the methods fba, dim, index
+    and gca. ``layers`` sets FBA's encoder blocks per stage (depth only;
+    widths are the published ones; the other backbones ignore it);
+    ``freeze_backbone`` runs the encoder and the extract half of a VMN
+    without gradient."""
     dev = resolve_device(device)
     method = method_of(model_name)
     if method != "fba" and method not in _SINGLE:
-        raise NotImplementedError(
-            f"{model_name!r} is not ported yet: ROADMAP.md Queue 1 item 10 "
-            "(the other backbones)")
+        raise ValueError(f"unknown model {model_name!r}")
     if model_name.startswith("vmn_"):
         parts = ((FBAEncoder(layers=tuple(layers)), FBADecoder())
                  if method == "fba"
@@ -90,7 +115,9 @@ def calibrate_random_weights(model: nn.Module, forward) -> None:
     normalizes with the pass's batch statistics and keeps them as its
     running statistics, and every convolution's weight and bias are
     divided by the RMS of its output (LSUV), so that each layer hands on
-    a signal of unit scale. Dropout stays off."""
+    a signal of unit scale. Dropout stays off. Spectral-norm convs are
+    left as they are: scaling ``weight_bar`` scales sigma with it (give
+    them a sigma first, :func:`converge_spectral_norms`)."""
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
 
     def unit_rms(conv, _, out):
@@ -115,3 +142,29 @@ def calibrate_random_weights(model: nn.Module, forward) -> None:
         for bn in bns:
             bn.momentum = 0.1
             bn.eval()
+
+
+def converge_spectral_norms(model: nn.Module) -> None:
+    """Set ``u`` and ``v`` of every spectral-norm conv to the leading
+    singular vectors of its weight, where the power iteration converges:
+    sigma is then the weight's spectral norm. For smoke runs and tests of
+    random weights: with ``u`` and ``v`` drawn at random (the JAX package's
+    initialisation too), ``sigma = u . W v`` is near 0 and of either sign,
+    and the network's signal blows up. On the CPU the SVDs run on one
+    thread: LAPACK's threads stall each other when several processes
+    share the cores (a CPU test run with several workers), and 70 SVDs
+    then take minutes instead of seconds."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, SNConv2d):
+                    p = m.module
+                    w = at_least_f32(p.weight_bar)
+                    u, _, vh = torch.linalg.svd(w.reshape(w.shape[0], -1),
+                                                full_matrices=False)
+                    p.weight_u.copy_(u[:, 0])
+                    p.weight_v.copy_(vh[0])
+    finally:
+        torch.set_num_threads(threads)

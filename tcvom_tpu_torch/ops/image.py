@@ -2,10 +2,10 @@
 
 The resizes and pools the models use take NCHW tensors. The JAX versions
 were written to equal torch's own operators, so here they are those
-operators: ``F.interpolate``, ``F.max_pool2d``, ``F.adaptive_avg_pool2d``
-and ``F.pixel_shuffle``. DIM's argmax pool keeps its index as the
-in-window position (uint8), as the JAX one does, not as torch's flat int64
-(:func:`max_pool_argmax_2x2`).
+operators: ``F.interpolate``, ``F.max_pool2d``, ``F.adaptive_avg_pool2d``,
+``F.pixel_shuffle`` and ``F.pad`` (GCA's :func:`reflection_pad`). DIM's
+argmax pool keeps its index as the in-window position (uint8), as the JAX
+one does, not as torch's flat int64 (:func:`max_pool_argmax_2x2`).
 
 The functions of the training stack (:func:`avg_pool`, :func:`unfold`,
 :func:`image_gradient`, :func:`dilate_by_radius`) and of the metrics
@@ -78,6 +78,12 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """``[N, C*r*r, H, W] -> [N, C, H*r, W*r]``: channel ``c*r*r + dy*r +
     dx`` goes to offset (dy, dx) of channel c."""
     return F.pixel_shuffle(x, r)
+
+
+def reflection_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad H and W of ``[N, C, H, W]`` by ``pad``
+    (``nn.ReflectionPad2d``: the edge row is not repeated)."""
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
 
 
 def _channels_last_op(fn, x: torch.Tensor) -> torch.Tensor:

@@ -101,13 +101,15 @@ class MattingTrainer:
         if driver not in ("vmd", "single"):
             raise ValueError(driver)
         if task_cfg.method != "fba":
-            # DIM's and IndexNet's BatchNorm would update its running
+            # DIM's, IndexNet's and GCA's BatchNorm would update its running
             # variance with torch's unbiased batch variance, the JAX
             # package with the biased one: a silent drift from the reference
+            extra = (" and its spectral-norm power iteration"
+                     if task_cfg.method == "gca" else "")
             raise NotImplementedError(
                 f"training {task_cfg.model!r} needs BatchNorm's training "
-                "semantics held against the JAX package: ROADMAP.md Queue 1 "
-                "item 11")
+                f"semantics{extra} held against the JAX package: ROADMAP.md "
+                "Queue 1 item 11")
         self.cfg = task_cfg
         self.device = resolve_device(device)
         self.layers = tuple(layers)

@@ -5,8 +5,11 @@ the JAX package's own converter (``convert_state_dict``) reads a port
 ``state_dict`` back; this module goes the other way, so weights carry across
 in both directions. Layout: HWIO -> OIHW for conv kernels, ``scale`` ->
 ``weight`` for norms; BatchNorm's ``batch_stats`` ``mean`` and ``var`` ->
-``running_mean`` and ``running_var``. ``num_batches_tracked`` has no JAX
-counterpart: the module keeps its own (load with ``strict=False``).
+``running_mean`` and ``running_var``; a spectral-norm conv's
+``kernel_bar`` -> ``module.weight_bar`` (HW(in)(out) -> IOHW for a
+transposed one) and its ``spectral`` ``u`` and ``v`` ->
+``module.weight_u`` and ``module.weight_v``. ``num_batches_tracked`` has
+no JAX counterpart: the module keeps its own (load with ``strict=False``).
 """
 from __future__ import annotations
 
@@ -95,18 +98,77 @@ def _index_rules() -> list[tuple[str, str]]:
     return rules
 
 
+def _gca_rules() -> list[tuple]:
+    """The inverse of tcvom_tpu/utils/convert.py::_gca_rules, for ``gca``
+    and ``vmn_gca`` alike; a third element marks a spectral-norm conv
+    (``"sn"``) or a transposed one (``"sn_t"``): the leaf names do not
+    tell them apart."""
+    blk = r"^encoder/(layer\d|layer_bottleneck)_(\d+)/"
+    rules = [
+        (r"^encoder/conv([123])$", r"encoder.conv\1", "sn"),
+        (r"^encoder/bn([123])$", r"encoder.bn\1"),
+        (blk + r"(conv[12])$", r"encoder.\1.\2.\3", "sn"),
+        (blk + r"(bn[12])$", r"encoder.\1.\2.\3"),
+        (blk + r"ds_conv$", r"encoder.\1.\2.downsample.1", "sn"),
+        (blk + r"ds_bn$", r"encoder.\1.\2.downsample.2"),
+        (r"^encoder/shortcut(\d)/conv1$", r"encoder.shortcut.\1.0", "sn"),
+        (r"^encoder/shortcut(\d)/bn1$", r"encoder.shortcut.\1.2"),
+        (r"^encoder/shortcut(\d)/conv2$", r"encoder.shortcut.\1.3", "sn"),
+        (r"^encoder/shortcut(\d)/bn2$", r"encoder.shortcut.\1.5"),
+        (r"^(encoder|decoder)/gca/guidance_conv$", r"\1.gca.guidance_conv"),
+        (r"^(encoder|decoder)/gca/W_conv$", r"\1.gca.W.0"),
+        (r"^(encoder|decoder)/gca/W_bn$", r"\1.gca.W.1"),
+        # the first block of each decoder layer upsamples: transposed conv1
+        (r"^decoder/(layer\d)_(0)/(conv1)$", r"decoder.\1.\2.\3", "sn_t"),
+        (r"^decoder/(layer\d)_(\d+)/(conv[12])$", r"decoder.\1.\2.\3",
+         "sn"),
+        (r"^decoder/(layer\d)_(\d+)/(bn[12])$", r"decoder.\1.\2.\3"),
+        (r"^decoder/(layer\d)_(\d+)/up_conv$", r"decoder.\1.\2.upsample.1",
+         "sn"),
+        (r"^decoder/(layer\d)_(\d+)/up_bn$", r"decoder.\1.\2.upsample.2"),
+        (r"^decoder/conv1$", "decoder.conv1", "sn_t"),
+        (r"^decoder/(bn1|conv2)$", r"decoder.\1"),
+        (r"^fam/(key|query|value)_conv$", r"decoder.fam.\1_conv"),
+    ]
+    # the guidance head's Sequential: (pad, conv, ReLU, BatchNorm) x 3
+    for i in range(3):
+        rules += [(rf"^encoder/guidance{i}$",
+                   f"encoder.guidance_head.{4 * i + 1}", "sn"),
+                  (rf"^encoder/guidance_bn{i}$",
+                   f"encoder.guidance_head.{4 * i + 3}")]
+    return rules
+
+
 _RULES = {"vmn_fba": _FBA_RULES, "dim": _dim_rules(False),
           "vmn_dim": _dim_rules(True), "index": _index_rules(),
-          "vmn_index": _index_rules()}
+          "vmn_index": _index_rules(), "gca": _gca_rules(),
+          "vmn_gca": _gca_rules()}
 
-# collection -> leaf -> (torch name, transform)
+
+def _hwio_to_oihw(a):
+    return np.transpose(a, (3, 2, 0, 1))
+
+
+def _sn_leaves(kernel_tf) -> dict:
+    return {"params": {"kernel_bar": ("module.weight_bar", kernel_tf)},
+            "spectral": {"u": ("module.weight_u", None),
+                         "v": ("module.weight_v", None)}}
+
+
+# rule kind -> collection -> leaf -> (torch name, transform)
 _LEAVES = {
-    "params": {
-        "kernel": ("weight", lambda a: np.transpose(a, (3, 2, 0, 1))),  # HWIO->OIHW
-        "scale": ("weight", None),
-        "bias": ("bias", None),
+    None: {
+        "params": {
+            "kernel": ("weight", _hwio_to_oihw),
+            "scale": ("weight", None),
+            "bias": ("bias", None),
+        },
+        "batch_stats": {"mean": ("running_mean", None),
+                        "var": ("running_var", None)},
     },
-    "batch_stats": {"mean": ("running_mean", None), "var": ("running_var", None)},
+    "sn": _sn_leaves(_hwio_to_oihw),
+    # HW(in)(out) -> IOHW, the inverse of the JAX converter's _tconv_w
+    "sn_t": _sn_leaves(lambda a: np.transpose(a, (2, 3, 0, 1))),
 }
 
 
@@ -122,21 +184,20 @@ def _flatten(tree: dict, prefix: str = ""):
 def jax_to_torch_state_dict(model_name: str, variables: dict
                             ) -> dict[str, torch.Tensor]:
     """Convert the JAX package's variables (nested dicts of arrays: the
-    ``params`` collection and, for BatchNorm, ``batch_stats``) to the
-    port's ``state_dict``. Raises on any leaf it cannot place."""
+    ``params`` collection and, for BatchNorm, ``batch_stats``, for
+    spectral norm, ``spectral``) to the port's ``state_dict``. Raises on
+    any leaf it cannot place."""
     if model_name not in _RULES:
-        raise NotImplementedError(
-            f"{model_name!r} is not ported yet: ROADMAP.md Queue 1 item 10")
-    rules = [(re.compile(p), t) for p, t in _RULES[model_name]]
+        raise ValueError(f"unknown model {model_name!r}")
+    rules = [(re.compile(rule[0]), rule[1], rule[2] if len(rule) > 2 else None)
+             for rule in _RULES[model_name]]
     out: dict[str, torch.Tensor] = {}
     for coll, tree in variables.items():
-        leaves = _LEAVES.get(coll)
-        if leaves is None:
-            raise KeyError(f"no port buffers for JAX collection {coll!r}")
         for path, val in _flatten(tree):
             module, leaf = path.rsplit("/", 1)
-            for pat, tmpl in rules:
+            for pat, tmpl, kind in rules:
                 m = pat.match(module)
+                leaves = _LEAVES[kind].get(coll, {})
                 if m and leaf in leaves:
                     name, tf = leaves[leaf]
                     arr = np.asarray(val, dtype=np.float32)

@@ -12,8 +12,10 @@ import torch
 from tcvom_tpu_torch.infer.predict import StreamingPredictor
 from tcvom_tpu_torch.models.full_model import TaskConfig, forward_eval
 from tcvom_tpu_torch.models.registry import (build_model,
-                                             calibrate_random_weights)
-from tcvom_tpu_torch.ops import cuda_build, edt_kernel, fam, fam_kernel
+                                             calibrate_random_weights,
+                                             converge_spectral_norms)
+from tcvom_tpu_torch.ops import (cuda_build, edt_kernel, fam, fam_kernel,
+                                 gca_attention)
 from tcvom_tpu_torch.ops.image import max_pool_argmax_2x2, max_unpool_2x2
 
 pytestmark = pytest.mark.cuda
@@ -85,7 +87,8 @@ def _fam_inputs(rng, shape, dtype, dev):
 
 @pytest.mark.parametrize("shape,window", [
     ((2, 8, 16, 8), 3), ((1, 16, 24, 32), 7), ((2, 16, 24, 256), 7),
-    ((1, 5, 7, 300), 5), ((1, 3, 4, 1), 9)])
+    ((1, 5, 7, 300), 5), ((1, 3, 4, 1), 9), ((2, 16, 24, 128), 7),
+    ((2, 136, 240, 128), 7)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fam_kernel_matches_plain(dev, rng, shape, window, dtype):
     q, k, m = _fam_inputs(rng, shape, dtype, dev)
@@ -174,7 +177,8 @@ def test_fam_rejects_windows_past_its_tiling(dev, rng, dtype, logits):
 
 @pytest.mark.parametrize("shape,window", [
     ((2, 8, 16, 8), 3), ((1, 16, 24, 32), 7), ((2, 16, 24, 256), 7),
-    ((1, 5, 7, 300), 5), ((1, 3, 4, 1), 9), ((6, 64, 64, 256), 7)])
+    ((1, 5, 7, 300), 5), ((1, 3, 4, 1), 9), ((6, 64, 64, 256), 7),
+    ((2, 136, 240, 128), 7)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fam_logits_kernel_matches_plain(dev, rng, shape, window, dtype):
     q, k, m = _fam_inputs(rng, shape, dtype, dev)
@@ -239,14 +243,19 @@ def test_launch_counts(dev, rng):
                                    "edt_row": 1}
 
 
-@pytest.mark.parametrize("name", ["vmn_fba", "vmn_dim", "vmn_index"])
+@pytest.mark.parametrize("name", ["vmn_fba", "vmn_dim", "vmn_index",
+                                  "vmn_gca"])
 def test_stream_on_card_matches_cpu(dev, rng, name):
     """Small f32 stream through both kernels (FBA; the FAM kernel alone at
-    C = 256 for DIM and C = 32 for IndexNet, whose weights are first
-    calibrated so that the mattes are not all 0) against the CPU (plain)
-    run of the same weights: uint8 mattes within one level."""
+    C = 256 for DIM, C = 32 for IndexNet and C = 128 for GCA, whose
+    weights are first calibrated so that the mattes are not all 0, GCA's
+    spectral-norm vectors set to its weights' singular vectors before)
+    against the CPU (plain) run of the same weights: uint8 mattes within
+    one level."""
     model = build_model(name, agg_window=3, layers=(1, 1, 1, 1),
                         device="cpu")
+    if name == "vmn_gca":
+        converge_spectral_norms(model)
     cfg = TaskConfig(model=name, agg_window=3)
     imgs = rng.randint(0, 256, (3, 1, 64, 96, 3)).astype(np.uint8)
     tri = np.zeros((1, 64, 96, 1), np.uint8)
@@ -290,3 +299,20 @@ def test_argmax_pool_on_card_matches_cpu(dev, rng, dtype):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert torch.equal(max_unpool_2x2(*got).cpu(), max_unpool_2x2(*want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gca_attention_core_on_card_matches_cpu(dev, rng, dtype):
+    """GCA's attention core on the card (cuBLAS products; in bf16 with f32
+    output) against the CPU's on the same values: f32 to 1e-4 (summation
+    order), bf16 to 2e-2 (the softmax weights rounded to bf16 in both)."""
+    f = torch.from_numpy((0.3 * rng.randn(2, 64, 17, 30)).astype(np.float32))
+    alpha = torch.from_numpy(rng.randn(2, 128, 34, 60).astype(np.float32))
+    unk = torch.from_numpy((rng.rand(2, 1, 17, 30) > 0.6).astype(np.float32))
+    args = [t.to(dtype) for t in (f, alpha, unk)]
+    want = gca_attention.guided_attention_core(*args)
+    got = gca_attention.guided_attention_core(*(t.to(dev) for t in args))
+    assert got.dtype == want.dtype == torch.float32
+    tol = (dict(atol=1e-4, rtol=0) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=0))
+    torch.testing.assert_close(got.cpu(), want, **tol)

@@ -14,6 +14,7 @@ from tcvom_tpu.models.vmn import VMN as JVMN
 from tcvom_tpu_torch.infer.predict import StreamingPredictor as TSP
 from tcvom_tpu_torch.models import full_model as TFM
 from tcvom_tpu_torch.models.registry import build_model
+from tcvom_tpu_torch.train.trainer import MattingTrainer
 from tcvom_tpu_torch.utils.convert import jax_to_torch_state_dict
 
 H = W = 64
@@ -123,5 +124,6 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(setup):
         build_model("vmn_fba", layers=LAYERS)
     with pytest.raises(RuntimeError, match="CUDA"):
         TSP(setup[2], TFM.TaskConfig(model="vmn_fba"), fgbg=False)
+    # GCA streams, but does not train yet (BatchNorm, power iteration)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("vmn_gca", device="cpu")
+        MattingTrainer(TFM.TaskConfig(model="vmn_gca"), "vmd", device="cpu")

@@ -1,8 +1,9 @@
 """The port's command-line tools on the CPU (``--device cpu``), FBA at a small
 depth (the tools build the depth an FBA checkpoint holds): pred_test over a
-root of videos with --shard, pred_vmn (FBA, IndexNet) then calc_metric on a
-fake VideoMatting108 tree with the zlib PNG codec standing in for OpenCV,
-pred_single (FBA, DIM), and the flags that are not ported yet."""
+root of videos with --shard (and GCA's VMN on one folder), pred_vmn (FBA,
+IndexNet, GCA) then calc_metric on a fake VideoMatting108 tree with the
+zlib PNG codec standing in for OpenCV, pred_single (FBA, DIM, GCA), and the
+flags that are not ported yet."""
 import argparse
 import json
 import os
@@ -11,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from tcvom_tpu_torch.models.registry import build_model
+from tcvom_tpu_torch.models.registry import (build_model,
+                                             converge_spectral_norms)
 from tcvom_tpu_torch.tools import (calc_metric, common, make_fake_dataset,
                                    pred_single, pred_test, pred_vmn)
 from tcvom_tpu_torch.tools.common import PUBLISHED_LAYERS, encoder_depth
@@ -25,10 +27,13 @@ CPU = ["--device", "cpu"]
 def ckpts(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ckpt")
     out = {}
-    for name in ("vmn_fba", "fba", "dim", "vmn_index"):
+    for name in ("vmn_fba", "fba", "dim", "vmn_index", "vmn_gca", "gca"):
         out[name] = str(tmp / f"{name}.pth")
-        save_weights(build_model(name, agg_window=3, layers=(1, 1, 1, 1),
-                                 device="cpu"), out[name])
+        model = build_model(name, agg_window=3, layers=(1, 1, 1, 1),
+                            device="cpu")
+        # GCA's random u and v give sigma near 0 and of either sign
+        converge_spectral_norms(model)
+        save_weights(model, out[name])
     return out
 
 
@@ -67,7 +72,22 @@ def test_pred_test_shards_videos(ckpts, tmp_path):
                                "--shard", "2/2"])
 
 
-@pytest.mark.parametrize("model", ["fba", "index"])
+@pytest.mark.parametrize("vmn", [True, False])
+def test_pred_test_gca(ckpts, tmp_path, vmn):
+    """GCA's VMN (the stream) and its single-frame model on one folder."""
+    src, save = str(tmp_path / "wild"), tmp_path / "out"
+    make_fake_dataset.make_wild_folder(src, frames=3, hw=(40, 70))
+    stats = pred_test.main(
+        ["--model", "gca", "--load", ckpts["vmn_gca" if vmn else "gca"],
+         "--data", src, "--save", str(save), "--agg_window", "3"]
+        + (["--vmn"] if vmn else []) + CPU)
+    assert [s["frames"] for s in stats] == [3]
+    for i in range(3):
+        a = IO.imread(str(save / f"{i:05d}_alpha.png"), IO.IMREAD_GRAYSCALE)
+        assert a.shape == (40, 70) and a.dtype == np.uint8
+
+
+@pytest.mark.parametrize("model", ["fba", "index", "gca"])
 def test_pred_vmn_then_calc_metric(ckpts, tmp_path, zlib_codec, model):
     data, save = str(tmp_path / "vmd"), str(tmp_path / "pred")
     make_fake_dataset.make(data, frames=3, hw=(64, 96))
@@ -95,7 +115,7 @@ def test_pred_vmn_then_calc_metric(ckpts, tmp_path, zlib_codec, model):
         assert np.isfinite(agg["avg"][k]), k
 
 
-@pytest.mark.parametrize("model", ["fba", "dim"])
+@pytest.mark.parametrize("model", ["fba", "dim", "gca"])
 def test_pred_single(ckpts, tmp_path, model):
     data, save = str(tmp_path / "vmd"), str(tmp_path / "pred")
     make_fake_dataset.make(data, frames=2, hw=(64, 64))
@@ -117,8 +137,9 @@ def test_tools_raise_for_what_is_not_ported(ckpts, tmp_path):
         pred_single.main(["--model", "fba", "--vis"] + base)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pred_vmn.main(["--model", "fba", "--space", "2"] + base)
+    # a directory (the JAX package's orbax checkpoint) is not read
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pred_test.main(["--model", "gca", "--vmn", "--load", ckpts["fba"],
+        pred_test.main(["--model", "gca", "--vmn", "--load", str(tmp_path),
                         "--data", str(tmp_path), "--save", str(tmp_path),
                         "v"] + CPU)
     if not torch.cuda.is_available():

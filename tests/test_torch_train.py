@@ -355,9 +355,12 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu():
         TT.MattingTrainer(cfg, "vmd", device="cpu")
 
 
-@pytest.mark.parametrize("model", ["vmn_dim", "index"])
+@pytest.mark.parametrize("model", ["vmn_dim", "index", "vmn_gca", "gca"])
 def test_trainer_refuses_batchnorm_backbones(model):
     """BatchNorm's running-variance update differs from the JAX package's
-    (unbiased against biased), so DIM and IndexNet do not train yet."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+    (unbiased against biased), so DIM, IndexNet and GCA do not train yet;
+    GCA's refusal names its spectral-norm power iteration too."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 11") as err:
         TT.MattingTrainer(TFM.TaskConfig(model=model), "vmd", device="cpu")
+    assert ("power iteration" in str(err.value)) == model.endswith("gca")
