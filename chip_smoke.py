@@ -60,21 +60,41 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
 11. pred_single --model dim and --model gca on pred_vmn's clip (f32;
    finite mSAD and MSE, the PNGs, seconds per sample, no kernel launched)
    and pred_vmn --model index and --model gca on it (f32; one
-   fam_window_logits launch per sample, finite losses, the PNGs).
+   fam_window_logits launch per sample, finite losses, the PNGs);
+12. the logits kernel (C/D) at the other backbones' training and
+   validation batches ([24, 64, 64, 256], [24, 64, 64, 32], [36, 64, 64,
+   128], [12, 68, 120, 32], [12, 68, 120, 128]) against the plain version,
+   out, logits, dq and dk, with the profiler's device time;
+13. train_dim_f32, train_index_f32, train_gca_f32: the video trainer of
+   each at full published width as its cfgs/vmd_vmn_*_pretrained_30ep.yaml
+   sets it (B = 4, 4, 6; S = 5, 512x512, f32), random weights from seed 0:
+   a kernel step against a plain step (losses, each module's gradient,
+   BatchNorm statistics, u, v; see train_backbone_phase), four more
+   steps (ms, peak memory) and a validation step (B = 6, S = 3, 544x960),
+   one fam_window_logits launch each;
+14. train_cli: python -m tcvom_tpu_torch.tools.train in subprocesses on
+   fake trees under build/: the IndexNet video config for an epoch,
+   resumed for a second, and the GCA TAM pretrain on Adobe-DIM stills,
+   whose frozen backbone must come out as it was loaded; seconds a step
+   and the loader's wait.
 
 The line before the last lists every kernel row on every path that runs
 it (name, route, source, the TPU kernel it replaces, the path, launches
 on that path, error, ms, plain ms, bound); the last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 ``--profile FILE`` adds torch.profiler breakdowns of two bf16 stream
-steps of each backbone, one pred_vmn evaluation step and two train steps,
-their tables written to FILE.
+steps of each backbone, one pred_vmn evaluation step and two train steps
+of each trainer, their tables written to FILE. The device phase prints
+the versions of OpenCV and PyYAML (None where one does not import).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -85,6 +105,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+ROOT = Path(__file__).resolve().parent
 H, W, WINDOW = 1088, 1920, 7
 FRAME_HW = (1080, 1920)                       # the tools' frames, padded to H
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
@@ -666,7 +687,7 @@ def pred_vmn_phase(model, tmp, cuda_build, profile_path=None):
                                   precomputed_val=str(root), sample_length=3,
                                   no_flow=True)
     t0 = time.perf_counter()
-    sample = {k: v[None] for k, v in dataset[1].items()}
+    sample = {k: v[None] for k, v in dataset[(0, 1)].items()}
     read_ms = (time.perf_counter() - t0) * 1e3
     step = make_vmd_eval_step(model, TaskConfig(
         model="vmn_fba", agg_window=WINDOW,
@@ -818,6 +839,342 @@ def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
     if not np.isfinite(value.item()) or alpha_c.shape != (6, 544, 960, 1):
         fail(f"validation value {value.item()}, alpha {tuple(alpha_c.shape)}")
     return counts, val_counts
+
+
+TRAIN_SHAPES = ((24, 64, 64, 256), (24, 64, 64, 32), (36, 64, 64, 128),
+                (12, 68, 120, 32), (12, 68, 120, 128))
+
+
+def check_fam_train_widths(fam, fam_kernel):
+    """The logits entry (kernels C/D) at the other backbones' training and
+    validation batches: both neighbours of B*(S-2) centres at OS 8 of
+    512x512 (DIM and IndexNet B = 4, GCA B = 6, S = 5) and of 544x960 (B =
+    6, S = 3) at their widths, f32, window 7: held against the plain
+    version (out and logits, and the autograd Function's dq, dk), timed
+    by the profiler's device time (CUDA events beside). Returns the times
+    by shape."""
+    rng = np.random.RandomState(11)
+    res = {}
+    for shape in TRAIN_SHAPES:
+        (q, k, m), errs = hold_fam(fam, fam_kernel, rng, shape, WINDOW,
+                                   torch.float32)
+        c = shape[3]
+        grads = []
+        d_out, d_lg = (torch.from_numpy(rng.randn(*s).astype(
+            np.float32)).cuda() for s in (q.shape, q.shape[:3]
+                                          + (WINDOW * WINDOW,)))
+        for f in (fam.FamAttention.apply, fam.fam_attention_ref):
+            q_, k_ = (t.clone().requires_grad_() for t in (q, k))
+            out, lg = f(q_, k_, m, WINDOW)
+            grads.append(torch.autograd.grad((out, lg), (q_, k_),
+                                             (d_out, d_lg)))
+        g_err = max((g - wt).abs().max().item() for g, wt in zip(*grads))
+        if g_err > 1e-5:
+            fail(f"FamAttention gradients at {shape} off by {g_err}")
+
+        def call():
+            return fam_kernel.fam_window_logits(q, k, m, WINDOW)
+
+        event_ms = time_ms(call, 20)
+        ms = device_ms(call, 20, "fam_window_mma_kernel")
+        plain_ms = time_ms(lambda: fam.fam_attention_ref(q, k, m, WINDOW), 3)
+        b_ms, b_by = bound(*fam_counts(m, c, WINDOW, logits=True),
+                           torch.float32)
+        res[shape] = dict(shape=list(shape), dtype=str(torch.float32),
+                          max_abs_err=max(errs["fam_window_logits out"],
+                                          errs["fam_window_logits logits"]),
+                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+        emit(phase="time", kernel="fam_window_logits", **res[shape],
+             event_ms=event_ms, dq_dk_max_abs_err=g_err)
+    return res
+
+
+def train_buffers(model) -> dict:
+    """The state a train step updates besides the parameters: every
+    BatchNorm's running statistics and every spectral-norm u and v."""
+    return {n: b.detach().double().clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var", "weight_u",
+                           "weight_v"))}
+
+
+# The FAM output's relative perturbation of a train step's rounding floor:
+# the f32 kernel's outputs lie ~1.5e-6 from the plain version's at unit
+# scale (phase "check" at the training shapes)
+FAM_ROUNDING = 1e-6
+# The ceiling of a train phase's gradient limit. On an H100 the kernel
+# step's largest module error was 3.0e-4 (DIM) and 1.3e-3 (IndexNet), the
+# perturbed step's 1.3e-3 and 1.8e-3; either step past it fails the phase
+GRAD_LIMIT_CAP = 1e-2
+
+
+def perturbed_fam(fam, seed: int):
+    """A context in which the plain FAM stands in for the kernel with its
+    output and logits perturbed by ``FAM_ROUNDING`` relative Gaussian
+    noise (fixed by ``seed``): a difference of the kernel's size, whatever
+    its source."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def jitter(t):
+        return t * (1.0 + FAM_ROUNDING * torch.randn(
+            t.shape, generator=gen, device=t.device, dtype=t.dtype))
+
+    def noisy_fam(q, k, mask, window, need_logits=False):
+        out, lg = fam.fam_attention_ref(q, k, mask, window)
+        return jitter(out), (jitter(lg) if need_logits else None)
+
+    return mock.patch.object(fam, "fam_attention", noisy_fam)
+
+
+def module_grad_errors(got: dict, want: dict) -> list:
+    """(relative L2 error, module) of each module's gradient, its
+    parameters' gradients taken as one vector, worst first. A parameter's
+    own relative error is no measure where its exact gradient is 0: a conv
+    bias right before a BatchNorm in training mode (the normalization
+    takes the per-channel mean out), and in the same way a bias whose
+    per-channel constant a later training-mode BatchNorm removes; its
+    gradient is rounding, and two plain steps differ by O(1) there."""
+    mods = {}
+    for n in want:
+        mods.setdefault(n.rsplit(".", 1)[0], []).append(n)
+    rows = []
+    for m, names in mods.items():
+        g = torch.cat([got[n].flatten() for n in names])
+        w = torch.cat([want[n].flatten() for n in names])
+        scale = w.norm().item()
+        rows.append(((g - w).norm().item() / scale if scale
+                     else (g - w).norm().item(), m))
+    return sorted(rows, reverse=True)
+
+
+def train_backbone_phase(name: str, fam, edt_kernel, cuda_build,
+                         profile_path=None):
+    """The video trainer of ``vmn_<name>`` (DIM, IndexNet or GCA) at full
+    published width, as cfgs/vmd_vmn_<name>_pretrained_30ep.yaml sets it
+    (Adam, poly lr, weight decay, its per-card batch; S = 5 at its
+    512x512 crops), random weights from seed 0 (GCA's u and v converged,
+    DIM calibrated on the batch). From the same weights, batch, radius and
+    dropout seed, with PyTorch's deterministic algorithms: a plain step, a
+    plain step with the FAM output perturbed at the kernel's rounding
+    (``perturbed_fam``) and a kernel step. The kernel step's losses within
+    rtol 1e-4 of the plain step's; its BatchNorm statistics, u and v
+    within 1e-5; each module's gradient within relative L2 1e-4 of the
+    plain step's, or, where the perturbed step moves some module further
+    than that, within twice the perturbed step's largest error (DIM's and
+    IndexNet's L1 losses flip sign at residuals within rounding of 0, and
+    each flip moves every gradient), and never past ``GRAD_LIMIT_CAP``,
+    which the perturbed step's own error must not pass either. Then three
+    more kernel steps (and a profile of two with ``profile_path``) and one
+    validation step (B = 6, S = 3, 544x960). Returns the launches of the
+    kernel step and of the validation step."""
+    from tcvom_tpu_torch.config import load_config
+    from tcvom_tpu_torch.models import full_model as FM
+    from tcvom_tpu_torch.models.registry import (calibrate_random_weights,
+                                                 converge_spectral_norms)
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+
+    tcfg = load_config(str(ROOT / "cfgs" /
+                           f"vmd_vmn_{name}_pretrained_30ep.yaml")).TRAIN
+    b = tcfg.BATCH_SIZE_PER_GPU
+    h, w = tcfg.TRAIN_INPUT_SIZE
+    task = FM.TaskConfig(model=f"vmn_{name}", agg_window=WINDOW)
+    trainer = MattingTrainer(task, "vmd", optimizer=tcfg.OPTIMIZER,
+                             lr_strategy=tcfg.LR_STRATEGY,
+                             base_lr=tcfg.BASE_LR,
+                             weight_decay=tcfg.WEIGHT_DECAY, total_iters=30)
+    batch = make_clip(b, 5, h, w, seed=5)
+    radius = FM.draw_radius(b, torch.Generator().manual_seed(3))
+
+    def fresh(weights=None):
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        if weights is not None:
+            state.model.load_state_dict(weights)
+        return state
+
+    state = fresh()
+    if name == "gca":
+        converge_spectral_norms(state.model)
+    if name == "dim":
+        calibrate_random_weights(state.model, lambda: FM.forward_vmd(
+            state.model, batch, task, radius))
+    weights = {k: v.clone() for k, v in state.model.state_dict().items()}
+    del state
+
+    def held_step(ctx):
+        """One step from ``weights`` in ``ctx``, deterministic: (metrics,
+        gradients, buffers, launches)."""
+        st = fresh(weights)
+        cuda_build.LAUNCHES.clear()
+        torch.use_deterministic_algorithms(True)
+        try:
+            with ctx:
+                _, metrics = trainer.train_step(st, batch, radius)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out = ({k: v.item() if torch.is_tensor(v) else v
+                for k, v in metrics.items()},
+               {n: p.grad.double() for n, p in st.model.named_parameters()},
+               train_buffers(st.model), dict(cuda_build.LAUNCHES))
+        del st
+        torch.cuda.empty_cache()
+        return out
+
+    m_plain, g_plain, b_plain, n_plain = held_step(
+        plain_kernels(fam, edt_kernel))
+    _, g_noisy, _, _ = held_step(perturbed_fam(fam, seed=1))
+    m_kern, g_kern, b_kern, counts = held_step(contextlib.nullcontext())
+    if sum(n_plain.values()):
+        fail(f"the plain {name} step launched kernels: {n_plain}")
+    loss_rel = {k: abs(m_kern[k] - m_plain[k]) / max(abs(m_plain[k]), 1e-30)
+                for k in m_plain if k != "lr"}
+    kern_err = module_grad_errors(g_kern, g_plain)
+    floor = module_grad_errors(g_noisy, g_plain)
+    limit = min(GRAD_LIMIT_CAP, max(1e-4, 2 * floor[0][0]))
+    tensor_err = sorted((((g_kern[n] - g_plain[n]).norm()
+                          / g_plain[n].norm().clamp_min(1e-30)).item(), n)
+                        for n in g_plain)[::-1]
+    buf_err = sorted(((v - b_plain[n]).abs().max().item()
+                      / max(1.0, b_plain[n].abs().max().item()), n)
+                     for n, v in b_kern.items())[::-1]
+    emit(phase=f"train_{name}_f32", what="kernels vs plain", batch=b,
+         launches=counts, losses={k: m_kern[k] for k in loss_rel},
+         loss_rel_err=loss_rel, modules=len(kern_err),
+         module_grad_err_worst=kern_err[:5],
+         module_grad_err_median=float(np.median([r[0] for r in kern_err])),
+         perturbed_fam_err_worst=floor[:3],
+         perturbed_fam_err_median=float(np.median([r[0] for r in floor])),
+         grad_limit=limit, tensor_grad_err_worst=tensor_err[:3],
+         buffers=len(buf_err), buffer_err_worst=buf_err[:3])
+    if counts != {"fam_window_logits": 1}:
+        fail(f"{name} train step launch counts {counts}, want one "
+             "fam_window_logits")
+    if max(loss_rel.values()) > 1e-4:
+        fail(f"{name} kernel and plain step losses differ: {loss_rel}")
+    if floor[0][0] > GRAD_LIMIT_CAP:
+        fail(f"{name} plain step moves {floor[:3]} under a "
+             f"{FAM_ROUNDING} FAM perturbation, over {GRAD_LIMIT_CAP}")
+    if kern_err[0][0] > limit:
+        fail(f"{name} kernel and plain step gradients differ: "
+             f"{kern_err[:5]}, limit {limit}")
+    if not buf_err or buf_err[0][0] > 1e-5:
+        fail(f"{name} kernel and plain step statistics differ: "
+             f"{buf_err[:5]}")
+    del g_plain, g_noisy, g_kern
+
+    state = fresh(weights)
+    del weights
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    if not all(np.isfinite(losses)):
+        fail(f"{name} train losses not finite: {losses}")
+    emit(phase=f"train_{name}_f32", what="steps", shape=[b, 5, h, w],
+         first_step_ms=step_ms[0], step_ms=step_ms[1:], losses=losses,
+         lr=metrics["lr"],
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if profile_path:
+        profile_steps(lambda: trainer.train_step(state, batch), 2,
+                      profile_path, f"profile_train_{name}_f32")
+    del batch
+    val = make_clip(6, 3, 544, 960, seed=6)
+    cuda_build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    value, (alpha_c, _, _) = trainer.val_dt_step(state, val)
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t0) * 1e3
+    val_counts = dict(cuda_build.LAUNCHES)
+    emit(phase=f"val_dt_{name}", shape=[6, 3, 544, 960], value=value.item(),
+         launches=val_counts, ms=val_ms)
+    if val_counts != {"fam_window_logits": 1}:
+        fail(f"{name} validation launch counts {val_counts}")
+    if not np.isfinite(value.item()) or alpha_c.shape != (6, 544, 960, 1):
+        fail(f"{name} validation value {value.item()}, alpha "
+             f"{tuple(alpha_c.shape)}")
+    return counts, val_counts
+
+
+def train_cli_phase(tmp):
+    """``python -m tcvom_tpu_torch.tools.train`` in subprocesses, files
+    under ``tmp``: cfgs/vmd_vmn_index_pretrained_30ep.yaml over a fake
+    VideoMatting108 tree (2 clips x 6 frames of 1080x1920; 6 training
+    samples at B = 4 are 2 steps an epoch), from a random .pth, one epoch
+    with images every step; resumed from its checkpoint for a second
+    epoch (the step count carries on); then cfgs/pretrain_vmn_gca.yaml
+    (--driver single --dataset dim) over a fake Adobe tree, one step from
+    a random .pth: the frozen backbone's weights, BatchNorm statistics and
+    u, v as they were loaded, the head's statistics moved."""
+    from tcvom_tpu_torch.models.registry import build_model
+    from tcvom_tpu_torch.tools.make_fake_dataset import make, make_adobe
+
+    root, adobe, logs = tmp / "vmd_train", tmp / "adobe", tmp / "train_log"
+    make(str(root), frames=6, hw=FRAME_HW, seed=1)
+    make_adobe(str(adobe), n=2, hw=(720, 540), seed=2)
+    index_pth = random_checkpoint("vmn_index", tmp)
+    gca_pth = random_checkpoint("vmn_gca", tmp)
+
+    def run(cfg: str, *opts, flags=()):
+        cmd = [sys.executable, "-m", "tcvom_tpu_torch.tools.train", "--cfg",
+               str(ROOT / "cfgs" / cfg), *flags, "SYSTEM.OUTDIR", str(logs),
+               *map(str, opts)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=900,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        secs = time.perf_counter() - t0
+        if proc.returncode:
+            print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+            fail(f"tools.train {cfg} exited {proc.returncode}")
+        out = logs / (Path(cfg).stem + "_agg7")
+        with open(out / "train_stats.json") as f:
+            stats = json.load(f)
+        emit(phase="train_cli", cfg=cfg, seconds=secs, **stats)
+        return out, proc
+
+    out, _ = run("vmd_vmn_index_pretrained_30ep.yaml", "DATASET.PATH", root,
+                 "TRAIN.LOAD_CKPT", index_pth, "TRAIN.TOTAL_STEPS", 1,
+                 "TRAIN.IMAGE_FREQ", 1)
+    step1 = torch.load(out / "checkpoint_1.pth", map_location="cpu")["step"]
+    images = len(list((out / "training_images").iterdir()))
+    out, proc = run("vmd_vmn_index_pretrained_30ep.yaml", "DATASET.PATH",
+                    root, "TRAIN.LOAD_CKPT", index_pth, "TRAIN.LOAD_OPT",
+                    out / "checkpoint_1.pth", "TRAIN.TOTAL_STEPS", 2,
+                    "TRAIN.IMAGE_FREQ", 1)
+    step2 = torch.load(out / "checkpoint_2.pth", map_location="cpu")["step"]
+    if (step1, step2, images) != (2, 4, 2 * 7) or \
+            "resumed full train state" not in proc.stderr:
+        fail(f"train_cli index: steps {step1}, {step2}, {images} images")
+
+    out, _ = run("pretrain_vmn_gca.yaml", "DATASET.PATH", adobe,
+                 "TRAIN.LOAD_CKPT", gca_pth, "TRAIN.TOTAL_STEPS", 1,
+                 flags=("--driver", "single", "--dataset", "dim"))
+    loaded = torch.load(gca_pth, map_location="cpu")
+    trained = torch.load(out / "checkpoint_1.pth", map_location="cpu")
+    model = build_model("vmn_gca", agg_window=WINDOW, device="cpu")
+    part_of = {id(m) for part in model.frozen_modules()
+               for m in part.modules()}
+    frozen = {f"{mn}.{n}" for mn, m in model.named_modules()
+              if id(m) in part_of
+              for n, _ in itertools.chain(m.named_parameters(recurse=False),
+                                          m.named_buffers(recurse=False))}
+    moved = sorted(k for k in frozen
+                   if not torch.equal(loaded[k], trained["model"][k]))
+    head = [k for k in loaded if k.startswith("decoder.layer3.")
+            and k.endswith("running_var")]
+    head_moved = [k for k in head
+                  if not torch.equal(loaded[k], trained["model"][k])]
+    emit(phase="train_cli", what="frozen backbone", step=trained["step"],
+         frozen_tensors=len(frozen),
+         frozen_moved=moved[:5], head_stats_moved=len(head_moved))
+    if moved or not head_moved or trained["step"] != 1:
+        fail(f"pretrain_vmn_gca: frozen tensors moved {moved[:5]}, "
+             f"{len(head_moved)} head statistics moved")
 
 
 def stream_tflop(model, in_channels: int) -> tuple[float, float]:
@@ -1050,6 +1407,22 @@ def pred_vmn_backbone_phase(name: str, tmp, root, cuda_build):
     return counts
 
 
+def probe_modules() -> dict:
+    """The version of each module the port takes from outside its own
+    requirements, None where it does not import: OpenCV (PNG and JPEG
+    codecs, the training augmentations, the DIM warps) and PyYAML (the
+    training configs)."""
+    import importlib
+
+    found = {}
+    for name in ("cv2", "yaml"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError:
+            found[name] = None
+    return found
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -1058,6 +1431,9 @@ def main():
                          "write the tables to FILE")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    # cuBLAS's deterministic mode (the train phases' held steps) needs its
+    # workspace fixed before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1069,7 +1445,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     emit(phase="device", name=kind, count=count, torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, probes=probe_modules())
     print(smi, flush=True)
 
     from tcvom_tpu_torch.infer.predict import StreamingPredictor
@@ -1163,7 +1539,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 6. the evaluation tools: pred_test (bf16), pred_vmn (f32), calc_metric
-    build = Path(__file__).resolve().parent / "build"
+    build = ROOT / "build"
     build.mkdir(exist_ok=True)
     # the tools' files, kept for phase 11 (removed at exit in any case)
     tmpdir = tempfile.TemporaryDirectory(dir=build)
@@ -1204,6 +1580,20 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         vmn_backbone_counts[name] = pred_vmn_backbone_phase(name, tmp, root,
                                                             cuda_build)
+
+    # -- 12. the logits kernel at the other backbones' training widths -------
+    train_width_res = check_fam_train_widths(fam, fam_kernel)
+    torch.cuda.empty_cache()
+
+    # -- 13. the DIM, IndexNet and GCA video trainers, f32, full width ------
+    trains = {}
+    for name in ("dim", "index", "gca"):
+        trains[name] = train_backbone_phase(name, fam, edt_kernel, cuda_build,
+                                            args.profile)
+        torch.cuda.empty_cache()
+
+    # -- 14. the training CLI in subprocesses: run, resume, frozen backbone ---
+    train_cli_phase(tmp)
     tmpdir.cleanup()
 
     # every row: the launches are its own path's (counts set to 0 just
@@ -1266,6 +1656,18 @@ def main():
              launches=vmn_backbone_counts["gca"]["fam_window_logits"],
              **c128_res["logits"]),
     ]
+    for name, train_shape, val_res in (
+            ("dim", (24, 64, 64, 256), logits_res[(12, 68, 120, 256)]),
+            ("index", (24, 64, 64, 32), train_width_res[(12, 68, 120, 32)]),
+            ("gca", (36, 64, 64, 128), train_width_res[(12, 68, 120, 128)])):
+        train_counts_, val_counts_ = trains[name]
+        kernels += [
+            dict(logits_c, path=f"train_{name}",
+                 launches=train_counts_["fam_window_logits"],
+                 **train_width_res[train_shape]),
+            dict(logits_c, path=f"val_{name}",
+                 replaces="tcvom_tpu/ops/fam_pallas.py:97",
+                 launches=val_counts_["fam_window_logits"], **val_res)]
     emit(phase="wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

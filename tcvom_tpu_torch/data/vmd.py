@@ -1,13 +1,16 @@
-"""VideoMatting108 validation data (port of the ``mode="val"`` pad path of
-tcvom_tpu/data/vmd.py): clip sampling with mirrored edges, paired
-FG(RGBA)/BG frames through frame_corr.json, quantized flow PNGs (/100,
-NaN-invalid), padded to the network's shape (the reference's precomputed
-val path). Items are float32 ``[S, H, W, C]`` in BGR 0-255, as the JAX
-package yields them; :func:`make_loader` batches them with
-``torch.utils.data.DataLoader``.
+"""VideoMatting108 data (port of tcvom_tpu/data/vmd.py): clip sampling
+with mirrored edges, paired FG(RGBA)/BG frames through frame_corr.json;
+in training a random temporal flip, a scale-crop-resize re-rolled until
+unknown pixels exist, and pixel and JPEG augmentation, drawn from
+``(seed, epoch, idx)``; in validation the frames padded to the network's
+shape (the reference's precomputed val path, which also reads the
+quantized flow PNGs, /100, NaN-invalid) or resized to it. Items are
+float32 ``[S, H, W, C]`` in BGR 0-255, as the JAX package yields them;
+``data/loader.py::make_loader`` batches them.
 
-Training items and the val resize path (``resize_bilinear_ac``,
-``flow_crop_and_resize``) are not ported: ROADMAP.md Queue 1 item 11.
+Flow is read on the pad path only: ``flow_crop_and_resize``, which the
+training items and the resize path would need, is not ported (ROADMAP.md
+Queue 1 item 11); the trainer reads no flow.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch.utils.data
 
+from tcvom_tpu_torch.data.augment import JpegAug, PixelAug, resize_bilinear_ac
 from tcvom_tpu_torch.utils.imageio import (IMREAD_COLOR, IMREAD_UNCHANGED,
                                            imread)
 
@@ -58,20 +62,24 @@ def read_flow_png(path: str) -> np.ndarray:
 
 
 class VideoMattingDataset(torch.utils.data.Dataset):
-    """``mode='val'`` with ``precomputed_val`` (the root the frames are read
-    from): items ``dict(a, fg, bg[, wb, wf], idx)`` padded to
-    ``image_shape``."""
+    """``mode='train'`` or ``'val'``; items ``dict(a, fg, bg[, wb, wf],
+    idx)`` of ``image_shape``. A key is ``(epoch, idx)``
+    (``data/loader.py``). In val the frames come from ``precomputed_val``
+    padded, or from ``data_root`` resized when it is None."""
 
     def __init__(self, data_root: str, image_shape, mode: str,
                  use_subset: bool = False, no_flow: bool = False,
                  precomputed_val: str | None = None, sample_length: int = 5,
-                 plus1: bool = False):
-        if mode != "val" or precomputed_val is None:
+                 plus1: bool = False, seed: int = 0):
+        if mode not in ("train", "val"):
+            raise ValueError(mode)
+        if not no_flow and (mode == "train" or precomputed_val is None):
             raise NotImplementedError(
-                "the port reads VideoMatting108 in mode='val' with "
-                "precomputed_val only; training items and the val resize "
-                "path: ROADMAP.md Queue 1 item 11")
+                "flow for training items and the val resize path needs "
+                "flow_crop_and_resize, not ported: ROADMAP.md Queue 1 item "
+                "11; pass no_flow=True")
         self.data_root = data_root
+        self.mode = mode
         self.no_flow = no_flow
         self.precomputed_val = precomputed_val
         self.sample_length = sample_length
@@ -84,12 +92,18 @@ class VideoMattingDataset(torch.utils.data.Dataset):
         with open(os.path.join(data_root, setname)) as f:
             videos = [v.strip() for v in f if v.strip()]
         self.samples = parse_samples(videos, self.frame_corr, sample_length)
+        self.seed = seed
+
+    def _item_rng(self, epoch: int, idx: int) -> np.random.RandomState:
+        """The item's own RandomState, from (seed, epoch, idx) alone
+        (tcvom_tpu/data/vmd.py:150-157)."""
+        return np.random.RandomState(
+            (self.seed * 1_000_003 + epoch * 8_191 + idx) % (2**31 - 1))
 
     def __len__(self):
         return len(self.samples)
 
-    def _read_frame(self, name: str):
-        root = self.precomputed_val
+    def _read_frame(self, name: str, root: str):
         f = imread(os.path.join(root, FG_FOLDER, name), IMREAD_UNCHANGED)
         bgp = os.path.join(root, BG_FOLDER, self.frame_corr[name])
         if not os.path.exists(bgp):
@@ -97,34 +111,88 @@ class VideoMattingDataset(torch.utils.data.Dataset):
         bg = np.float32(imread(bgp, IMREAD_COLOR))
         return np.float32(f[..., :-1]), bg, np.float32(f[..., -1:])
 
-    def __getitem__(self, idx: int):
-        sample = self.samples[idx]
-        s = len(sample)
-        fgs, bgs, alphas = zip(*[self._read_frame(n) for n in sample])
-        out = {
-            "a": np.stack([self._pad(a, 0.0) for a in alphas]),
-            "fg": np.stack([self._pad(f, IMG_PADDING_VALUE) for f in fgs]),
-            "bg": np.stack([self._pad(b, IMG_PADDING_VALUE) for b in bgs]),
-            "idx": np.int32(idx),
-        }
+    def _shape_aug(self, fgs, bgs, alphas, rng,
+                   scales=(1.0, 1.25, 1.5, 2.0, 1.75)):
+        """Random scale crop of the whole clip, re-rolled until every
+        frame keeps unknown pixels (reference shape_aug, VMD.py:128-166;
+        tcvom_tpu/data/vmd.py:172-199): the scales that fit the frame,
+        the last crop after 1000 tries."""
+        h, w = alphas[0].shape[:2]
+        size = self.image_shape
+        if size[0] != size[1]:
+            raise ValueError(f"training crops are square, got {size}")
+        fitting = [s for s in scales
+                   if int(size[0] * s) < h and int(size[1] * s) < w] or [
+                       min(h - 1, w - 1) / float(size[0])]
+
+        def crop(imgs):
+            return [resize_bilinear_ac(x[ph:ph + nh, pw:pw + nw], size)
+                    for x in imgs]
+
+        for _ in range(1000):
+            scale = float(rng.choice(fitting))
+            nh, nw = int(size[0] * scale), int(size[1] * scale)
+            ph = rng.randint(0, h - nh)
+            pw = rng.randint(0, w - nw)
+            pa = crop(alphas)
+            if all(np.sum((x > 0) & (x < 255)) >= 1 for x in pa):
+                break
+        return crop(fgs), crop(bgs), pa
+
+    def __getitem__(self, key):
+        epoch, idx = key
+        sample = list(self.samples[idx])
+        rng = self._item_rng(epoch, idx)
+        if self.mode == "train" and rng.rand() > 0.5:
+            sample = sample[::-1]
+        root = (self.data_root if self.precomputed_val is None
+                else self.precomputed_val)
+        fgs, bgs, alphas = (list(x) for x in zip(
+            *[self._read_frame(n, root) for n in sample]))
+        if self.mode == "train":
+            fgs, bgs, alphas = self._shape_aug(fgs, bgs, alphas, rng)
+            pixel_aug = PixelAug(rng)
+            p_fg, p_bg = pixel_aug.sample(), pixel_aug.sample()
+            jpeg = JpegAug(rng).sample()
+            fgs = [np.float32(JpegAug.apply(
+                PixelAug.apply(np.uint8(f), p_fg), jpeg)) for f in fgs]
+            bgs = [np.float32(PixelAug.apply(np.uint8(b), p_bg))
+                   for b in bgs]
+        elif self.precomputed_val is not None:
+            fgs = [self._pad(f, IMG_PADDING_VALUE) for f in fgs]
+            bgs = [self._pad(b, IMG_PADDING_VALUE) for b in bgs]
+            alphas = [self._pad(a, 0.0) for a in alphas]
+        else:
+            fgs, bgs, alphas = ([resize_bilinear_ac(x, self.image_shape)
+                                 for x in xs] for xs in (fgs, bgs, alphas))
+        out = {"a": np.stack(alphas).astype(np.float32),
+               "fg": np.stack(fgs).astype(np.float32),
+               "bg": np.stack(bgs).astype(np.float32),
+               "idx": np.int32(idx)}
         if not self.no_flow:
-            dn = os.path.dirname(sample[0])
-            fns = [os.path.splitext(os.path.basename(n))[0] for n in sample]
-
-            def flow(a, b):
-                return self._pad(read_flow_png(os.path.join(
-                    self.data_root, FLOW_FOLDER, dn, f"flow_{a}_{b}.png")),
-                    np.nan)
-
-            nanf = np.full(self.image_shape + [2], np.nan, np.float32)
-            wb, wf = [nanf] * s, [nanf] * s
-            for i in range(2, s - 2):
-                wf[i] = flow(fns[i], fns[i + 1])
-                wb[i] = flow(fns[i], fns[i - 1])
-            wf[1] = flow(fns[1], fns[2])
-            wb[-2] = flow(fns[-2], fns[-3])
-            out["wb"], out["wf"] = np.stack(wb), np.stack(wf)
+            out["wb"], out["wf"] = self._flows(sample)
         return out
+
+    def _flows(self, sample):
+        """wb and wf ``[S, H, W, 2]`` of the pad path: the center frames'
+        backward and forward flow, NaN elsewhere."""
+        s = len(sample)
+        dn = os.path.dirname(sample[0])
+        fns = [os.path.splitext(os.path.basename(n))[0] for n in sample]
+
+        def flow(a, b):
+            return self._pad(read_flow_png(os.path.join(
+                self.data_root, FLOW_FOLDER, dn, f"flow_{a}_{b}.png")),
+                np.nan)
+
+        nanf = np.full(self.image_shape + [2], np.nan, np.float32)
+        wb, wf = [nanf] * s, [nanf] * s
+        for i in range(2, s - 2):
+            wf[i] = flow(fns[i], fns[i + 1])
+            wb[i] = flow(fns[i], fns[i - 1])
+        wf[1] = flow(fns[1], fns[2])
+        wb[-2] = flow(fns[-2], fns[-3])
+        return np.stack(wb), np.stack(wf)
 
     def _pad(self, t: np.ndarray, value) -> np.ndarray:
         h, w = t.shape[:2]
@@ -141,21 +209,3 @@ class VideoMattingDataset(torch.utils.data.Dataset):
         out[h:] = np.asarray(value, t.dtype)
         out[:, w:] = np.asarray(value, t.dtype)
         return out
-
-
-def stack_collate(items: list[dict]) -> dict:
-    """Stack each key's numpy arrays along a new batch axis."""
-    return {k: np.stack([it[k] for it in items]) for k in items[0]}
-
-
-def make_loader(dataset, batch_size: int, num_workers: int = 0
-                ) -> torch.utils.data.DataLoader:
-    """In-order batches of numpy arrays (the last one may be short), the
-    JAX package's ``DataLoader(shuffle=False, drop_last=False)``. Worker
-    processes are spawned, not forked: the caller has threads (CUDA's,
-    the intra-op pool). Each imports torch and this package before its
-    first sample, a start the sweep pays once."""
-    return torch.utils.data.DataLoader(
-        dataset, batch_size=batch_size, shuffle=False, drop_last=False,
-        num_workers=num_workers, collate_fn=stack_collate,
-        multiprocessing_context="spawn" if num_workers else None)

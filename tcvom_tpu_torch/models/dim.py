@@ -17,6 +17,11 @@ from tcvom_tpu_torch.models.layers import BatchNorm
 from tcvom_tpu_torch.ops.image import max_pool_argmax_2x2, max_unpool_2x2
 
 _STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+# the encoder's modules, which the single-frame model keeps beside the
+# decoder's under flat keys
+_ENCODER_MODULES = tuple(
+    f"{kind}{stage}{j}" for stage, (n_convs, _) in enumerate(_STAGES, start=1)
+    for j in range(1, n_convs + 1) for kind in ("conv", "bn")) + ("conv6",)
 # (name, in, out) of the 5x5 convs after each unpool, deepest first
 _UP = (("dconv5", 512, 512), ("dconv4", 512, 256), ("dconv3", 256, 128),
        ("dconv2", 128, 64), ("dconv1", 64, 64))
@@ -63,6 +68,10 @@ class DIMDecoder(nn.Module):
     output ``x``: unpool3..1 with their 5x5 convs, ``alpha_pred``, clip
     (``_dim_head_slow``); ``'full'`` runs both."""
 
+    # the modules mode="extract" runs, frozen with the encoder under
+    # FREEZE_BACKBONE (models/vmn.py::VMN.train)
+    EXTRACT_MODULES = ("dconv6", "dconv5", "dconv4")
+
     def __init__(self):
         super().__init__()
         self.dconv6 = nn.Conv2d(4096, 512, 1)
@@ -100,6 +109,12 @@ class DeepMatting(DIMDecoder):
     def __init__(self, input_chn: int = 4):
         super().__init__()
         _add_encoder(self, input_chn)
+
+    def frozen_modules(self) -> list[nn.Module]:
+        """The backbone that FREEZE_BACKBONE freezes: the encoder's layers
+        and the extract half's."""
+        return [getattr(self, name)
+                for name in _ENCODER_MODULES + self.EXTRACT_MODULES]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(_encode(self, x))

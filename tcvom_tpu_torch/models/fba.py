@@ -12,8 +12,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tcvom_tpu_torch.models.layers import (GroupNorm32, WSConv2d,
-                                           at_least_f32)
+from tcvom_tpu_torch.models.layers import (EncoderDecoder, GroupNorm32,
+                                           WSConv2d, at_least_f32)
 from tcvom_tpu_torch.ops.image import (adaptive_avg_pool, max_pool,
                                        resize_bilinear)
 
@@ -109,6 +109,10 @@ class FBADecoder(nn.Module):
     at OS=8 after conv_up1 (the per-frame half of VMN); ``mode='head'``
     continues from the FAM output ``x``; ``'full'`` runs both."""
 
+    # the modules mode="extract" runs, frozen with the encoder under
+    # FREEZE_BACKBONE (models/vmn.py::VMN.train)
+    EXTRACT_MODULES = ("ppm", "conv_up1")
+
     def __init__(self, pool_scales=(1, 2, 3, 6)):
         super().__init__()
         self.ppm = nn.ModuleList(nn.Sequential(
@@ -160,7 +164,7 @@ class FBADecoder(nn.Module):
         return torch.cat([alpha, F_, B], dim=1)
 
 
-class FBA(nn.Module):
+class FBA(EncoderDecoder):
     """Single-frame FBA matting model (reference models.py:7-30): the
     encoder and the ``full`` decoder. ``forward(x, extras)``: ``x`` the
     11-channel input, ``extras`` (raw scaled image, 2-channel trimap), all

@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tcvom_tpu_torch.models.layers import BatchNorm, SNConv2d
+from tcvom_tpu_torch.models.layers import BatchNorm, EncoderDecoder, SNConv2d
 from tcvom_tpu_torch.ops.gca_attention import guided_attention_core
 from tcvom_tpu_torch.ops.image import reflection_pad, resize_nearest
 
@@ -176,6 +176,10 @@ class GCADecoder(nn.Module):
     ``conv1``, ``bn1``, shortcut 1, ``conv2`` and ``(tanh + 1) / 2``;
     ``'full'`` runs both."""
 
+    # the modules mode="extract" runs, frozen with the encoder under
+    # FREEZE_BACKBONE (models/vmn.py::VMN.train)
+    EXTRACT_MODULES = ("layer1", "layer2", "gca")
+
     def __init__(self, layers=(2, 3, 3, 2)):
         super().__init__()
         self.layer1 = _make_layer(DecBasicBlock, 512, 256, layers[0], 2)
@@ -207,7 +211,7 @@ class GCADecoder(nn.Module):
         return (torch.tanh(self.conv2(h)) + 1.0) / 2.0
 
 
-class GCA(nn.Module):
+class GCA(EncoderDecoder):
     """Single-frame GCA generator (reference generators.py:35-37).
     ``forward(x)``: ``x`` ``[N, 6, H, W]``; alpha ``[N, 1, H, W]``."""
 

@@ -13,7 +13,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tcvom_tpu_torch.models.layers import BatchNorm, conv_bn_relu6
+from tcvom_tpu_torch.models.layers import (BatchNorm, Dropout, EncoderDecoder,
+                                           conv_bn_relu6)
 from tcvom_tpu_torch.ops.image import pixel_shuffle, resize_nearest
 
 # (expand ratio, out channels, blocks) of layer1..layer7
@@ -78,7 +79,10 @@ class _ASPPBranch(nn.Module):
 class ASPP(nn.Module):
     """ASPP at OS 32 (reference hlaspp.py:87-135): a 1x1 branch, three
     depthwise-separable branches at dilations 2, 4 and 8, and a global
-    average branch broadcast back; Dropout(0.5), a no-op in eval."""
+    average branch broadcast back; Dropout(0.5), a no-op in eval. In
+    training the pooled branch's BatchNorm sees one value a channel per
+    frame, so a train step needs more than one frame (the trainer checks).
+    The dropout draws from the trainer's generator (``layers.Dropout``)."""
 
     def __init__(self, inp: int = 320, oup: int = 160):
         super().__init__()
@@ -91,7 +95,7 @@ class ASPP(nn.Module):
         self.global_avg_pool = nn.Sequential(nn.AdaptiveAvgPool2d(1),
                                              *conv_bn_relu6(inp, 256, 1))
         self.bottleneck_conv = conv_bn_relu6(5 * 256, oup, 1)
-        self.dropout = nn.Dropout(0.5)
+        self.dropout = Dropout(0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [self.aspp1(x), self.aspp2(x), self.aspp3(x),
@@ -171,6 +175,10 @@ class IndexMattingDecoder(nn.Module):
     decoder_layer3..0 and the prediction head (conv_bn 32 -> 1 and a 5x5
     1 -> 1 conv, unclipped); ``'full'`` runs both."""
 
+    # the modules mode="extract" runs, frozen with the encoder under
+    # FREEZE_BACKBONE (models/vmn.py::VMN.train)
+    EXTRACT_MODULES = tuple(layer[0] for layer in _DECODER[:_SPLIT])
+
     def __init__(self):
         super().__init__()
         for name, cin, cout, _, _ in _DECODER:
@@ -199,7 +207,7 @@ class IndexMattingDecoder(nn.Module):
         return self.pred(self._run(_DECODER[_SPLIT:], x, enc))
 
 
-class IndexMatting(nn.Module):
+class IndexMatting(EncoderDecoder):
     """Single-frame IndexNet (reference net.py:285-294). ``forward(x)``:
     ``x`` ``[N, 4, H, W]``, H and W multiples of 32; returns alpha
     ``[N, 1, H, W]``, unclipped."""

@@ -39,13 +39,70 @@ def GroupNorm32(channels: int) -> nn.GroupNorm:
     return nn.GroupNorm(32, channels, eps=1e-5)
 
 
-def BatchNorm(channels: int) -> nn.BatchNorm2d:
-    """BatchNorm2d with the JAX package's settings (eps 1e-5, momentum 0.1,
-    flax's 0.9), used in eval mode: the running statistics of a
-    checkpoint. (In training, flax updates the running variance with the
-    biased batch variance and torch with the unbiased one: ROADMAP.md
-    Queue 1 item 11.)"""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class EncoderDecoder(nn.Module):
+    """A model of an ``encoder`` and a ``decoder`` whose class lists the
+    modules of its feature-extraction half in ``EXTRACT_MODULES``."""
+
+    def frozen_modules(self) -> list[nn.Module]:
+        """The backbone that FREEZE_BACKBONE freezes: the encoder and the
+        decoder's extract half."""
+        return [self.encoder] + [getattr(self.decoder, name) for name in
+                                 type(self.decoder).EXTRACT_MODULES]
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with the JAX package's settings and training semantics
+    (flax's ``nn.BatchNorm`` and ``RawBatchNorm``,
+    tcvom_tpu/models/layers.py:25-32, :90-123): eps 1e-5, momentum 0.1
+    (flax's 0.9).
+
+    Eval mode is torch's own: the running statistics. In training the
+    input is normalized with the batch mean and the *biased* batch
+    variance, as in torch, and the running statistics are updated without
+    gradient from that same biased variance, as flax does (torch's own
+    update takes the unbiased one, n/(n-1) larger). With ``momentum=None``
+    (a cumulative average, which flax does not have;
+    ``registry.calibrate_random_weights`` sets it) training is torch's own
+    throughout. The ``state_dict`` keys are torch's.
+
+    One statistics pass: ``F.batch_norm`` at momentum 1 writes the batch
+    mean and unbiased variance into scratch buffers beside the output, and
+    the running statistics move toward that mean and that variance times
+    (n-1)/n."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.momentum is None:
+            return super().forward(x)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+        return y
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose training mask is drawn from ``generator`` when
+    one is set (the trainer sets one, seeded from its own: a step is then
+    reproducible from the trainer's seed), else from torch's global RNG.
+    Elements are zeroed with probability ``p`` and the rest scaled by
+    ``1 / (1 - p)``; eval mode is the identity."""
+
+    generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.generator is None:
+            return super().forward(x)
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=self.generator)
+        return x * keep / (1.0 - self.p)
 
 
 def conv_bn_relu6(cin: int, cout: int, kernel: int) -> nn.Sequential:

@@ -115,10 +115,13 @@ def calibrate_random_weights(model: nn.Module, forward) -> None:
     normalizes with the pass's batch statistics and keeps them as its
     running statistics, and every convolution's weight and bias are
     divided by the RMS of its output (LSUV), so that each layer hands on
-    a signal of unit scale. Dropout stays off. Spectral-norm convs are
-    left as they are: scaling ``weight_bar`` scales sigma with it (give
-    them a sigma first, :func:`converge_spectral_norms`)."""
+    a signal of unit scale. Dropout stays as it is (off in eval mode).
+    Spectral-norm convs are left as they are: scaling ``weight_bar``
+    scales sigma with it (give them a sigma first,
+    :func:`converge_spectral_norms`). Each BatchNorm's mode is restored
+    after."""
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    modes = [bn.training for bn in bns]
 
     def unit_rms(conv, _, out):
         s = out.float().square().mean().sqrt().clamp_min(1e-12)
@@ -139,9 +142,9 @@ def calibrate_random_weights(model: nn.Module, forward) -> None:
     finally:
         for h in hooks:
             h.remove()
-        for bn in bns:
+        for bn, mode in zip(bns, modes):
             bn.momentum = 0.1
-            bn.eval()
+            bn.train(mode)
 
 
 def converge_spectral_norms(model: nn.Module) -> None:

@@ -6,13 +6,17 @@ As in the reference, the FAM lives inside the decoder
 
 ``freeze_backbone`` reproduces the reference semantics (VMN_model.py:77-81,
 100-104): the encoder and the extract half of the decoder run without
-gradient (and the trainer keeps their parameters out of the optimizer).
+gradient and stay in eval mode under ``.train()`` (their BatchNorms keep
+and use their running statistics, their spectral-norm convs do no power
+iteration: the JAX package's ``train=False`` there), and the trainer keeps
+their parameters out of the optimizer.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
+from tcvom_tpu_torch.models.layers import EncoderDecoder
 from tcvom_tpu_torch.ops import fam as fam_ops
 from tcvom_tpu_torch.ops.image import resize_nearest
 
@@ -76,7 +80,7 @@ class FeatureAggregationModule(nn.Module):
                               need_logits=True)
 
 
-class VMN(nn.Module):
+class VMN(EncoderDecoder):
     """Temporal wrapper: per-frame encode + extract, FAM over the window,
     decoder head."""
 
@@ -93,6 +97,13 @@ class VMN(nn.Module):
     @property
     def fam(self) -> FeatureAggregationModule:
         return self.decoder.fam
+
+    def train(self, mode: bool = True) -> "VMN":
+        super().train(mode)
+        if self.freeze_backbone:
+            for m in self.frozen_modules():
+                m.eval()
+        return self
 
     def encode_extract_qkv(self, images, extras=None):
         """Per-frame half: encoder, decoder feature-extract (OS=8) and the

@@ -5,9 +5,13 @@ tools/make_fake_dataset.py), written as PNG with the port's image writer:
   (RGBA), BG_done pairs, frame_corr.json, train/val video lists, quantized
   flow PNGs (zero flow, all valid);
 - :func:`make_wild_folder`: a wild-video folder for pred_test,
-  NNNNN_rgb.png / NNNNN_trimap.png.
+  NNNNN_rgb.png / NNNNN_trimap.png;
+- :func:`make_adobe`: an Adobe-DIM tree of stills for the TAM pretrain
+  (``tools/train.py --dataset dim``); its backgrounds are JPEG files, which
+  need OpenCV (cv2).
 
-    python -m tcvom_tpu_torch.tools.make_fake_dataset --root DIR [--wild]
+    python -m tcvom_tpu_torch.tools.make_fake_dataset --root DIR \
+        [--wild | --adobe N]
 """
 from __future__ import annotations
 
@@ -78,6 +82,37 @@ def make_wild_folder(root: str, frames: int = 3, hw=(60, 90), seed=0):
         imwrite(os.path.join(root, f"{i:05d}_trimap.png"), tri)
 
 
+def make_adobe(root: str, n: int = 2, hw=(80, 56), seed=0):
+    """The JAX package's tiny Adobe-DIM tree (reference dataset/DIM.py
+    layout), draw for draw from ``seed``: stills of growing size, a disc
+    alpha, JPEG backgrounds twice as large; ``fg_val_set.txt`` and
+    ``fg_train_set_old.txt`` list '<fg> <alpha>', ``bg_val_set.txt`` and
+    ``bg_train_set.txt`` one background a line."""
+    rng = np.random.RandomState(seed)
+    for d in ("fg", "alpha", "bg"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    fg_lines, bg_lines = [], []
+    for i in range(n):
+        h, w = hw[0] + 8 * i, hw[1] + 4 * i
+        fg = rng.randint(0, 256, (h, w, 3), np.uint8)
+        yy, xx = np.mgrid[0:h, 0:w]
+        d = np.sqrt((xx - w / 2) ** 2 + (yy - h / 2) ** 2)
+        alpha = np.uint8(np.clip((0.3 * min(h, w) - d) / (0.2 * min(h, w))
+                                 + 1.0, 0, 1) * 255)
+        bg = rng.randint(0, 256, (h * 2, w * 2, 3), np.uint8)
+        imwrite(os.path.join(root, "fg", f"{i}.png"), fg)
+        imwrite(os.path.join(root, "alpha", f"{i}.png"), alpha)
+        imwrite(os.path.join(root, "bg", f"{i}.jpg"), bg)
+        fg_lines.append(f"fg/{i}.png alpha/{i}.png")
+        bg_lines.append(f"bg/{i}.jpg")
+    for name, lines in (("fg_val_set.txt", fg_lines),
+                        ("bg_val_set.txt", bg_lines),
+                        ("fg_train_set_old.txt", fg_lines),
+                        ("bg_train_set.txt", bg_lines)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
 if __name__ == "__main__":
     p = argparse.ArgumentParser()
     p.add_argument("--root", required=True)
@@ -87,9 +122,14 @@ if __name__ == "__main__":
     p.add_argument("--wild", action="store_true",
                    help="write a pred_test folder instead of a "
                         "VideoMatting108 tree")
+    p.add_argument("--adobe", type=int, default=0, metavar="N",
+                   help="write an Adobe-DIM tree of N stills (sizes from "
+                        "--height and --width) instead")
     a = p.parse_args()
     if a.wild:
         make_wild_folder(a.root, a.frames, (a.height, a.width))
+    elif a.adobe:
+        make_adobe(a.root, a.adobe, (a.height, a.width))
     else:
         make(a.root, frames=a.frames, hw=(a.height, a.width))
     print("fake dataset at", a.root)

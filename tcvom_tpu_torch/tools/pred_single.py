@@ -13,7 +13,8 @@ import os
 
 import numpy as np
 
-from tcvom_tpu_torch.data.vmd import VideoMattingDataset, make_loader
+from tcvom_tpu_torch.data.loader import make_loader
+from tcvom_tpu_torch.data.vmd import VideoMattingDataset
 from tcvom_tpu_torch.infer.predict import (TRIMAP_DILATION,
                                            make_single_eval_step,
                                            write_pred_pngs)

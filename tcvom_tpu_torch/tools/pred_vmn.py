@@ -11,7 +11,8 @@ import argparse
 import os
 import time
 
-from tcvom_tpu_torch.data.vmd import VideoMattingDataset, make_loader
+from tcvom_tpu_torch.data.loader import make_loader
+from tcvom_tpu_torch.data.vmd import VideoMattingDataset
 from tcvom_tpu_torch.infer.predict import (TRIMAP_DILATION, make_vmd_eval_step,
                                            write_pred_pngs)
 from tcvom_tpu_torch.models.full_model import TaskConfig

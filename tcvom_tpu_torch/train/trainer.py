@@ -1,6 +1,12 @@
 """Training driver (port of tcvom_tpu/train/trainer.py): the optimizers,
 the poly/const schedules, the frozen-backbone parameter filter and the
-train, eval, validation and visualization steps on one device.
+train, eval, validation and visualization steps on one device, for all
+eight models.
+
+One train step updates, besides the parameters, every BatchNorm's running
+statistics and every spectral-norm conv's ``u`` and ``v`` that run in
+training mode (the JAX package's ``mutable=list(model_state)``,
+tcvom_tpu/train/trainer.py:160-170); a frozen backbone keeps its own.
 
 Loss mixes:
 - video (train_ddp.py:61):   L1 + L2 + L3 + 0.5*L_dt + 0.25*L_att
@@ -14,34 +20,23 @@ import torch
 
 from tcvom_tpu_torch.models import full_model as FM
 from tcvom_tpu_torch.models import registry
+from tcvom_tpu_torch.models.layers import Dropout
 from tcvom_tpu_torch.ops.losses import l1_mask
 from tcvom_tpu_torch.utils.device import resolve_device
-
-# Decoder submodules of the feature-extraction half, frozen with the
-# encoder under FREEZE_BACKBONE (the reference sets them to eval() and keeps
-# them out of the optimizer: VMN_FBA.py); the JAX package's ppm, up1_0, up1_1
-_FROZEN_DECODER_PREFIXES = {"fba": ("ppm.", "conv_up1.")}
 
 LOSS_WEIGHTS_VMD = {"L1": 1.0, "L2": 1.0, "L3": 1.0, "L_dt": 0.5, "L_att": 0.25}
 LOSS_WEIGHTS_SINGLE = {"L1": 1.0, "L2": 1.0, "L3": 1.0}
 
 
-def trainable_mask(model: torch.nn.Module, model_name: str,
+def trainable_mask(model: torch.nn.Module,
                    freeze_backbone: bool) -> dict[str, bool]:
     """Parameter name -> whether the optimizer updates it (the reference's
-    requires_grad filtering, train_ddp.py:285-291)."""
-    frozen_dec = _FROZEN_DECODER_PREFIXES.get(
-        registry.method_of(model_name), ())
-
-    def decide(name: str) -> bool:
-        if not freeze_backbone:
-            return True
-        if name.startswith("encoder."):
-            return False
-        sub = name.removeprefix("decoder.")
-        return sub == name or not sub.startswith(frozen_dec)
-
-    return {n: decide(n) for n, _ in model.named_parameters()}
+    requires_grad filtering, train_ddp.py:285-291, VMN_DIM.py:102-108):
+    under ``freeze_backbone`` not those of ``model.frozen_modules()``, the
+    encoder and the decoder's extract half."""
+    frozen = ({id(p) for m in model.frozen_modules() for p in m.parameters()}
+              if freeze_backbone else set())
+    return {n: id(p) not in frozen for n, p in model.named_parameters()}
 
 
 def make_lr_schedule(strategy: str, base_lr: float, total_iters: int):
@@ -74,11 +69,15 @@ def make_optimizer(name: str, params, weight_decay: float
 @dataclasses.dataclass
 class TrainState:
     """What a step reads and advances: the step count, the model, its
-    optimizer and the generator of the random trimap radii."""
+    optimizer, the generator of the random trimap radii (on the CPU) and,
+    for a model with dropout (IndexNet), the dropout masks' generator on
+    the model's device, seeded from the first."""
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
+    dropout_generator: torch.Generator | None = None
+
 
 
 class MattingTrainer:
@@ -86,11 +85,18 @@ class MattingTrainer:
     (the card unless ``device='cpu'``).
 
     ``driver``: 'vmd' (FullModel_VMD, the video loss stack) or 'single'
-    (FullModel's VMN branch, the TAM pretrain). ``layers`` cuts the
-    encoder's depth (widths stay the published ones).
+    (FullModel: a single-frame model, or a VMN in the TAM pretrain).
+    ``layers`` cuts FBA's encoder depth (widths stay the published ones;
+    the other backbones have no depth knob).
 
     Every step takes an optional ``radius`` ``[B]``, the per-sample trimap
     dilation; without one it is drawn from ``state.generator``.
+
+    ``init_state`` leaves the model in training mode (a frozen backbone in
+    eval, ``VMN.train``) and the other steps in eval mode; ``train_step``
+    sets training mode when the model as a whole is in eval, and otherwise
+    runs it in the modes it is in (a submodule the caller put in eval
+    stays there).
     """
 
     def __init__(self, task_cfg: FM.TaskConfig, driver: str,
@@ -100,16 +106,6 @@ class MattingTrainer:
                  device: str | torch.device = "cuda"):
         if driver not in ("vmd", "single"):
             raise ValueError(driver)
-        if task_cfg.method != "fba":
-            # DIM's, IndexNet's and GCA's BatchNorm would update its running
-            # variance with torch's unbiased batch variance, the JAX
-            # package with the biased one: a silent drift from the reference
-            extra = (" and its spectral-norm power iteration"
-                     if task_cfg.method == "gca" else "")
-            raise NotImplementedError(
-                f"training {task_cfg.model!r} needs BatchNorm's training "
-                f"semantics{extra} held against the JAX package: ROADMAP.md "
-                "Queue 1 item 11")
         self.cfg = task_cfg
         self.device = resolve_device(device)
         self.layers = tuple(layers)
@@ -124,7 +120,8 @@ class MattingTrainer:
     def init_state(self, generator: torch.Generator | None = None
                    ) -> TrainState:
         """Random weights from ``generator`` (seed 0 if None), which then
-        draws the trimap radii; the optimizer holds only the trainable
+        seeds the dropout generator (IndexNet) and draws the trimap radii;
+        the model in training mode; the optimizer holds only the trainable
         parameters (frozen ones get no update and no weight decay)."""
         gen = generator or torch.Generator().manual_seed(0)
         cfg = self.cfg
@@ -132,12 +129,20 @@ class MattingTrainer:
             cfg.model, agg_window=cfg.agg_window,
             agg_reduction=cfg.agg_reduction, layers=self.layers,
             device=self.device, generator=gen,
-            freeze_backbone=cfg.freeze_backbone)
-        mask = trainable_mask(model, cfg.model, cfg.freeze_backbone)
+            freeze_backbone=cfg.freeze_backbone).train()
+        dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
+        drop_gen = None
+        if dropouts:
+            drop_gen = torch.Generator(device=self.device).manual_seed(
+                int(torch.randint(2**62, (), generator=gen)))
+            for m in dropouts:
+                m.generator = drop_gen
+        mask = trainable_mask(model, cfg.freeze_backbone)
         params = [p for n, p in model.named_parameters() if mask[n]]
         return TrainState(step=0, model=model, generator=gen,
                           optimizer=make_optimizer(self._opt_name, params,
-                                                   self._weight_decay))
+                                                   self._weight_decay),
+                          dropout_generator=drop_gen)
 
     def _radius(self, state: TrainState, batch: dict, radius):
         if radius is None and self.cfg.dilate_radius is None:
@@ -148,9 +153,22 @@ class MattingTrainer:
         """One optimizer step on ``batch`` (a, fg, bg ``[B, S, H, W, .]``,
         0..255, on the device). Updates ``state`` in place and returns
         (state, metrics): loss, each loss term and the step's lr, as
-        0-d device tensors (lr a float). The gradients stay in ``.grad``."""
+        0-d device tensors (lr a float). The gradients stay in ``.grad``.
+
+        IndexNet's ASPP normalizes a 1x1-pooled branch with its batch
+        statistics, so its encoder must see more than one frame: a
+        single-frame ``index`` step at B = 1 raises ``ValueError``."""
         model, opt = state.model, state.optimizer
-        model.train()
+        frames = batch["a"].shape[0] * (batch["a"].shape[1]
+                                        if self.cfg.is_vmn else 1)
+        if self.cfg.method == "index" and frames < 2:
+            raise ValueError(
+                "IndexNet's ASPP pools to 1x1 before a BatchNorm, whose "
+                "training statistics need more than one frame: train "
+                f"{self.cfg.model!r} at a batch of at least 2 (got B = "
+                f"{batch['a'].shape[0]})")
+        if not model.training:
+            model.train()
         radius = self._radius(state, batch, radius)
         opt.zero_grad(set_to_none=True)
         losses, _ = self._forward(model, batch, self.cfg, radius)

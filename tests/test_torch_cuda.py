@@ -316,3 +316,100 @@ def test_gca_attention_core_on_card_matches_cpu(dev, rng, dtype):
     tol = (dict(atol=1e-4, rtol=0) if dtype == torch.float32
            else dict(atol=2e-2, rtol=0))
     torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+# -- training (the BatchNorm backbones) --------------------------------------
+
+@pytest.mark.parametrize("shape", [(24, 64, 64, 32), (36, 64, 64, 128),
+                                   (12, 68, 120, 32), (12, 68, 120, 128)])
+def test_fam_logits_training_widths_forward_and_backward(dev, rng, shape):
+    """The logits kernel at IndexNet's and GCA's training and validation
+    batches (window 7), forward (out, logits) and, through the autograd
+    Function, dq and dk against the plain version's autograd."""
+    q, k, m = _fam_inputs(rng, shape, torch.float32, dev)
+    d_out = torch.randn(q.shape, device=dev)
+    d_lg = torch.randn(q.shape[:3] + (49,), device=dev)
+    outs = []
+    for f in (fam.FamAttention.apply, fam.fam_attention_ref):
+        q_, k_ = q.clone().requires_grad_(), k.clone().requires_grad_()
+        out, lg = f(q_, k_, m, 7)
+        outs.append((out.detach(), lg.detach()) + torch.autograd.grad(
+            (out, lg), (q_, k_), (d_out, d_lg)))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_batchnorm_training_update_on_card_matches_cpu(dev, rng):
+    """The port's BatchNorm in training, twice, then in eval: outputs and
+    running statistics on the card against the CPU's."""
+    from tcvom_tpu_torch.models.layers import BatchNorm
+
+    bns = [BatchNorm(16), BatchNorm(16).to(dev)]
+    bns[1].load_state_dict(bns[0].state_dict())
+    xs = [torch.from_numpy(rng.randn(6, 16, 9, 7).astype(np.float32) * 2 + 1)
+          for _ in range(3)]
+    for i, x in enumerate(xs):
+        outs = [bn.train(i < 2)(x.to(bn.weight.device)) for bn in bns]
+        torch.testing.assert_close(outs[1].cpu(), outs[0], atol=1e-5, rtol=0)
+    for key in ("running_mean", "running_var", "num_batches_tracked"):
+        torch.testing.assert_close(getattr(bns[1], key).cpu(),
+                                   getattr(bns[0], key), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["vmn_dim", "vmn_index", "vmn_gca"])
+def test_train_step_on_card_matches_cpu(dev, rng, name):
+    """One ``MattingTrainer.train_step`` (B = 1, S = 5, 64x64, window 3)
+    through the logits kernel on the card against the CPU's from the same
+    weights, batch and radius (IndexNet's dropout in eval): losses within
+    rtol 1e-4; running statistics, u and v within 1e-4; each module's
+    gradient within 1e-3, or within twice the largest move the CPU step
+    itself makes when its inputs are jittered by relative 1e-6, where that
+    is larger (the L1 losses' signs and DIM's pool choices flip at
+    rounding)."""
+    from chip_smoke import module_grad_errors
+    from tcvom_tpu_torch.models.layers import Dropout
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+
+    cfg = TaskConfig(model=name, agg_window=3)
+    yy, xx = np.mgrid[:64, :64]
+    a = np.stack([np.clip((18 - np.hypot(yy - 30 - 2 * t, xx - 32 + t)) / 6,
+                          0, 1) * 255 for t in range(5)])[None, ..., None]
+    batch = {"a": a.astype(np.float32),
+             **{k: rng.randint(0, 256, (1, 5, 64, 64, 3)).astype(np.float32)
+                for k in ("fg", "bg")}}
+    jittered = dict(batch, **{k: (batch[k] * (1 + 1e-6 * rng.randn(
+        *batch[k].shape))).astype(np.float32) for k in ("fg", "bg")})
+    weights = None
+    runs = []
+    for device, data in (("cpu", batch), ("cpu", jittered), (dev, batch)):
+        trainer = MattingTrainer(cfg, "vmd", device=device)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        if weights is None:
+            if name == "vmn_gca":
+                converge_spectral_norms(state.model)
+            weights = {k: v.clone() for k, v in
+                       state.model.state_dict().items()}
+        state.model.load_state_dict(weights)
+        for m in state.model.modules():
+            if isinstance(m, Dropout):
+                m.eval()
+        cuda_build.LAUNCHES.clear()
+        _, metrics = trainer.train_step(
+            state, {k: torch.from_numpy(v).to(device)
+                    for k, v in data.items()}, radius=torch.tensor([4]))
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.cpu() for n, p in
+                      state.model.named_parameters()},
+                     {n: b.cpu() for n, b in state.model.named_buffers()},
+                     dict(cuda_build.LAUNCHES)))
+    (m_cpu, g_cpu, b_cpu, _), (_, g_jit, _, _), (m_gpu, g_gpu, b_gpu,
+                                                 launches) = runs
+    assert launches == {"fam_window_logits": 1}
+    for k, v in m_cpu.items():
+        np.testing.assert_allclose(m_gpu[k], v, rtol=1e-4, atol=1e-7,
+                                   err_msg=k)
+    for k, v in b_cpu.items():
+        torch.testing.assert_close(b_gpu[k], v, atol=1e-4, rtol=1e-4)
+    floor = module_grad_errors(g_jit, g_cpu)[0][0]
+    worst = module_grad_errors(g_gpu, g_cpu)[0]
+    assert worst[0] <= max(1e-3, 2 * floor), (worst, floor)

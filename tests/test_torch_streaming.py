@@ -124,6 +124,7 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(setup):
         build_model("vmn_fba", layers=LAYERS)
     with pytest.raises(RuntimeError, match="CUDA"):
         TSP(setup[2], TFM.TaskConfig(model="vmn_fba"), fgbg=False)
-    # GCA streams, but does not train yet (BatchNorm, power iteration)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MattingTrainer(TFM.TaskConfig(model="vmn_gca"), "vmd", device="cpu")
+    # the trainer, for GCA too (it trains since BatchNorm's update and the
+    # power iteration were ported)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MattingTrainer(TFM.TaskConfig(model="vmn_gca"), "vmd")

@@ -268,10 +268,10 @@ def test_trainable_mask_matches_jax(jax_model):
     want_frozen = {n for n, t in jax_to_torch_state_dict(
         "vmn_fba", {"params": flags}).items() if not t.any()}
     _, state = _port_trainer(variables, freeze_backbone=True)
-    got = TT.trainable_mask(state.model, "vmn_fba", True)
+    got = TT.trainable_mask(state.model, True)
     assert {n for n, keep in got.items() if not keep} == want_frozen
     assert any(n.startswith("decoder.conv_up1.") for n in want_frozen)
-    assert all(TT.trainable_mask(state.model, "vmn_fba", False).values())
+    assert all(TT.trainable_mask(state.model, False).values())
 
 
 def test_frozen_backbone_gets_no_update_and_no_decay(jax_model, rng):
@@ -280,7 +280,7 @@ def test_frozen_backbone_gets_no_update_and_no_decay(jax_model, rng):
     _, variables = jax_model
     tr, state = _port_trainer(variables, freeze_backbone=True,
                               weight_decay=1e-2)
-    keep = TT.trainable_mask(state.model, "vmn_fba", True)
+    keep = TT.trainable_mask(state.model, True)
     before = {n: p.detach().clone()
               for n, p in state.model.named_parameters()}
     n_opt = sum(len(g["params"]) for g in state.optimizer.param_groups)
@@ -353,14 +353,3 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TT.MattingTrainer(cfg, "vmd")
         TT.MattingTrainer(cfg, "vmd", device="cpu")
-
-
-@pytest.mark.parametrize("model", ["vmn_dim", "index", "vmn_gca", "gca"])
-def test_trainer_refuses_batchnorm_backbones(model):
-    """BatchNorm's running-variance update differs from the JAX package's
-    (unbiased against biased), so DIM, IndexNet and GCA do not train yet;
-    GCA's refusal names its spectral-norm power iteration too."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 11") as err:
-        TT.MattingTrainer(TFM.TaskConfig(model=model), "vmd", device="cpu")
-    assert ("power iteration" in str(err.value)) == model.endswith("gca")
