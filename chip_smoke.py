@@ -76,7 +76,20 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    fake trees under build/: the IndexNet video config for an epoch,
    resumed for a second, and the GCA TAM pretrain on Adobe-DIM stills,
    whose frozen backbone must come out as it was loaded; seconds a step
-   and the loader's wait.
+   and the loader's wait;
+15. train_ddp_fba, train_ddp_gca2, pred_vmn_ddp: tools.train and
+   tools.pred_vmn under python -m torch.distributed.run --standalone
+   (train_ddp_phases, pred_vmn_ddp_phase): FBA's video config at full
+   width on one rank over NCCL against the plain command, an epoch and
+   its validation (losses, validation L_dt, weights, best.pth), GCA's at
+   B = 6 on two ranks over gloo on the one card against one process at
+   B = 12 (losses, statistics, the whole update and each module's
+   against jittered one-process steps), pred_vmn on two gloo ranks
+   against a one-process sweep (the PNGs byte for byte, each rank's
+   launches; the one-process runs here take a fresh process's TF32
+   settings, which the tools' subprocesses keep: cuDNN's convolutions in
+   TF32); the DDP step's ms beside the plain step's, each rank's peak
+   memory.
 
 The line before the last lists every kernel row on every path that runs
 it (name, route, source, the TPU kernel it replaces, the path, launches
@@ -383,9 +396,10 @@ def check_edt(edt_kernel, distance, tri):
 def check_edt_train(edt_kernel):
     """Kernel A at the inputs make_trimap gives it: the column pass of the
     train batch's bg/fg planes ([B*S*2*512, 512]), timed, of the validation
-    batch's ([B*S*2*544, 960]) and of a pred_vmn sample's at the medium
-    trimap width ([1*3*2*1088, 1920]), timed, captured from preprocess with
-    the plain row pass standing in. Returns the times by path."""
+    batch's ([B*S*2*544, 960]), of the DDP validation's at B = 1, timed,
+    and of a pred_vmn sample's at the medium trimap width ([1*3*2*1088,
+    1920]), timed, captured from preprocess with the plain row pass
+    standing in. Returns the times by path."""
     from tcvom_tpu_torch.infer.predict import TRIMAP_DILATION
     from tcvom_tpu_torch.models.full_model import (TaskConfig, draw_radius,
                                                    preprocess)
@@ -394,6 +408,7 @@ def check_edt_train(edt_kernel):
     for b, s, h, w, seed, path, dil in (
             (1, 5, 512, 512, 5, "train", None),
             (6, 3, 544, 960, 6, "val", None),
+            (1, 3, 544, 960, 7, "val_ddp", None),
             (1, 3, H, W, 8, "pred_vmn", TRIMAP_DILATION["medium"])):
         cfg = TaskConfig(model="vmn_fba", agg_window=WINDOW,
                          dilate_radius=dil)
@@ -488,7 +503,8 @@ def check_fam(fam, fam_kernel):
 def check_fam_logits(fam, fam_kernel):
     """The logits-writing entry (replacing TPU kernels C and D) at the
     training step's [prev; next] batch (B*(S-2)*2 = 6 at 64x64), the
-    validation step's (12 at 68x120), a pred_vmn batch's (2 at 136x240),
+    validation step's (12 at 68x120; 2 at B = 1, the DDP validation's),
+    a pred_vmn batch's (2 at 136x240),
     timed, and a narrow shape in f32 and bf16, the inference entry held at
     the same inputs; then the autograd
     Function's dq, dk against the plain version's autograd at the training
@@ -498,6 +514,7 @@ def check_fam_logits(fam, fam_kernel):
     res = {}
     for shape, window, dtype in (((6, 64, 64, 256), WINDOW, torch.float32),
                                  ((12, 68, 120, 256), WINDOW, torch.float32),
+                                 ((2, 68, 120, 256), WINDOW, torch.float32),
                                  ((2, 136, 240, 256), WINDOW, torch.float32),
                                  ((2, 16, 24, 32), 3, torch.float32),
                                  ((2, 16, 24, 32), 3, torch.bfloat16)):
@@ -1177,6 +1194,400 @@ def train_cli_phase(tmp):
              f"{len(head_moved)} head statistics moved")
 
 
+# the logged losses of two ranks against one process at their global
+# batch (the JAX package's own two-process tolerance, tests/
+# test_multihost.py), and of a DDP run of one rank against a plain run
+DDP_LOSS_RTOL = {1: 1e-4, 2: 2e-4}
+
+
+def tool_run(cmd: list, what: str, timeout: int = 900):
+    """``cmd`` from the repo root with this package importable; its stdout
+    and stderr on failure, which fails the phase. Returns its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    if proc.returncode:
+        print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+        fail(f"{what} exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def torchrun(n: int, module: str) -> list:
+    """The command of ``module`` on ``n`` ranks of this machine."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={n}", "-m", module]
+
+
+def logged_losses(out) -> list[float]:
+    """``Current: Loss`` of each logged step, from the rank-0 log."""
+    return [float(v) for v in logged(out, r"Current: Loss: ([0-9.]+)")]
+
+
+def logged(out, pattern: str, suffix: str = "_train.log") -> list[str]:
+    """Each match of ``pattern``'s group in the run's log (rank 0's, or
+    another rank's by ``suffix``)."""
+    import re
+
+    (log,) = [p for p in out.iterdir() if p.name.endswith(suffix)]
+    return re.findall(pattern, log.read_text())
+
+
+def checkpoint_errors(got: dict, want: dict, base: dict | None = None):
+    """(each module's parameters' relative L2 error, worst first; each
+    running statistic's and u's, v's largest error over max(1, its
+    largest value), worst first) of two train states' models; with
+    ``base`` (the weights both started from) the parameters' updates are
+    compared instead."""
+    mods = {}
+    for k, v in want.items():
+        if v.is_floating_point() and not k.endswith(STAT_KEYS):
+            mods.setdefault(k.rsplit(".", 1)[0], []).append(k)
+
+    def vec(d, names):
+        return torch.cat([(d[n].double() - (0 if base is None else
+                                             base[n].double())).flatten()
+                          for n in names])
+
+    params = sorted((((vec(got, ns) - vec(want, ns)).norm()
+                      / vec(want, ns).norm().clamp_min(1e-30)).item(), m)
+                    for m, ns in mods.items())[::-1]
+    stats = sorted(((got[k].double() - want[k].double()).abs().max().item()
+                    / max(1.0, want[k].abs().max().item()), k)
+                   for k in want if k.endswith(STAT_KEYS))[::-1]
+    return params, stats
+
+
+STAT_KEYS = ("running_mean", "running_var", "weight_u", "weight_v")
+
+
+GCA_CFG = "vmd_vmn_gca_pretrained_30ep.yaml"
+# torch's TF32 settings of a fresh process (cuDNN convolutions, cuBLAS
+# matmuls), which the tools' subprocesses keep; main turns both off
+FRESH_TF32 = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+
+
+@contextlib.contextmanager
+def fresh_tf32():
+    """This process with a fresh process's TF32 settings, as a tool's
+    subprocess runs, for a one-process run to compare with it."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = FRESH_TF32
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+# the relative Gaussian jitters of a batch's fg and bg (one draw, scaled)
+# whose moves set the floors of train_ddp_gca2's update checks: rounding
+# of the inputs' size. Two, since one module's move is no smooth function
+# of the jitter (GCA's encoder.layer2.0.downsample.2: 2.6e-3 at 1e-6,
+# 6.6e-2 at 2e-6; PERF.md §6)
+INPUT_ROUNDING = (1e-6, 2e-6)
+
+
+def gca_b12_steps(tree, ckpt, jitter: float = 0.0):
+    """``tools.train``'s first step of GCA_CFG with SGD at B = 12 on
+    ``tree``, in this process, as the command makes it (the config, the
+    seed's weights and radius generator, ``ckpt`` loaded, the sampler's
+    first batch, deterministic algorithms, a fresh process's TF32
+    settings), with the batch's fg and bg
+    jittered by relative ``jitter``; then a second step on the same
+    batch, timed. Returns (the first step's loss, the weights and
+    buffers after it, the second step's ms, the peak memory in GiB)."""
+    from types import SimpleNamespace
+
+    from tcvom_tpu_torch.config import load_config
+    from tcvom_tpu_torch.data.loader import make_loader
+    from tcvom_tpu_torch.models.full_model import TaskConfig
+    from tcvom_tpu_torch.tools import train as T
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+    from tcvom_tpu_torch.utils.checkpoint import load_weights
+
+    cfg = load_config(str(ROOT / "cfgs" / GCA_CFG), [
+        "DATASET.PATH", str(tree), "TRAIN.OPTIMIZER", "sgd",
+        "TRAIN.BATCH_SIZE_PER_GPU", "12", "TRAIN.TOTAL_STEPS", "1"])
+    seed = cfg.SYSTEM.RANDOM_SEED
+    data, _ = T._datasets(cfg, SimpleNamespace(
+        dataset="vmd", driver="vmd", sample_length=None), seed)
+    loader = make_loader(data, 12, shuffle=True, seed=seed, drop_last=True)
+    batch = T._on(next(iter(loader)), torch.device("cuda"))
+    if jitter:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for k in ("fg", "bg"):
+            batch[k] = batch[k] * (1.0 + jitter * torch.randn(
+                batch[k].shape, generator=gen, device="cuda"))
+    trainer = MattingTrainer(
+        TaskConfig(model=cfg.MODEL, agg_window=cfg.AGG_WINDOW),
+        "vmd", optimizer=cfg.TRAIN.OPTIMIZER,
+        lr_strategy=cfg.TRAIN.LR_STRATEGY, base_lr=cfg.TRAIN.BASE_LR,
+        weight_decay=cfg.TRAIN.WEIGHT_DECAY,
+        total_iters=cfg.TRAIN.TOTAL_STEPS * len(loader))
+    state = trainer.init_state(torch.Generator().manual_seed(seed))
+    load_weights(state.model, str(ckpt))
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with fresh_tf32():
+            _, metrics = trainer.train_step(state, batch)
+            after = {k: v.detach().cpu() for k, v in
+                     state.model.state_dict().items()}
+            t0 = time.perf_counter()
+            trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            second_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.use_deterministic_algorithms(False)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = round(metrics["loss"].item(), 6)
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+    return loss, after, second_ms, peak
+
+
+def update_error(got: dict, want: dict, base: dict) -> float:
+    """The relative L2 error of every parameter's update at once."""
+    keys = [k for k, v in want.items()
+            if v.is_floating_point() and not k.endswith(STAT_KEYS)]
+
+    def vec(d):
+        return torch.cat([(d[k].double() - base[k].double()).flatten()
+                          for k in keys])
+
+    return ((vec(got) - vec(want)).norm() / vec(want).norm()).item()
+
+
+# train_ddp_gca2's update limits: twice the farthest move of a jittered
+# one-process step (INPUT_ROUNDING), at least UPDATE_FLOOR; for the whole
+# update at most UPDATE_CEILING
+UPDATE_FLOOR, UPDATE_CEILING = 1e-4, 1e-2
+
+
+VAL_L_DT = r"epoch \d+ val L_dt: ([0-9.]+)"
+
+
+def train_ddp_phases(tmp) -> dict:
+    """``tools.train`` under ``torch.distributed.run`` on fake trees, each
+    run a subprocess (``--deterministic``, 2 loader workers a rank), its
+    losses from the log and its train state from ``checkpoint_1.pth``:
+
+    - train_ddp_fba: cfgs/vmd_vmn_fba_pretrained_30ep.yaml at full width
+      (B = 1, S = 5, 512x512) for an epoch of the 6-frame training clip
+      of ``train_cli``, validating it (``--tool train``: the 6 samples
+      of the validation clip at 544x960): one rank over NCCL
+      against the same command without ``torch.distributed.run``: losses
+      and validation L_dt within rtol 1e-4, each module's weights and
+      ``best.pth``'s within 1e-4 relative L2 (a plain rerun was
+      bit-identical, PERF.md §6); the DDP step's ms beside the plain
+      step's (the steps after the first);
+    - train_ddp_gca2: GCA_CFG at its per-card batch (B = 6, S = 5,
+      512x512) with SGD in place of Adam, two ranks over gloo on the one
+      card, two epochs of one step on a 12-frame clip, against the
+      command's first step at B = 12 made in this process
+      (``gca_b12_steps``; the same as the command's, bit for bit, PERF.md
+      §6) after them, and again with the batch's fg and bg jittered by
+      each of ``INPUT_ROUNDING``: the losses within rtol 2e-4, every
+      BatchNorm statistic and u, v within 1e-5, the whole update within
+      twice the jittered steps' farthest move (at least 1e-4, at most
+      1e-2), each module's update (its parameters' as one vector) within
+      twice their farthest move of that module (at least 1e-4; no ceiling:
+      at f32 the jitter moves 16 of GCA's 150 modules past 1e-2, PERF.md
+      §6); the steps' ms after the first, each rank's peak memory. SGD,
+      whose update is the gradient's: Adam's first step moves every
+      weight by about lr whatever its gradient's size.
+
+    Returns the launches of rank 0's process in each run
+    (``train_stats.json``), the validations' apart (``val_launches``)."""
+    from tcvom_tpu_torch.tools.make_fake_dataset import make
+
+    logs = tmp / "ddp_log"
+    launches = {}
+
+    def run(name, cfg, tree, ckpt, ranks, *opts, backend=None, val=False):
+        """With ``val`` through this script's ``--tool train``, which
+        validates every epoch."""
+        out_root = logs / name
+        module, tool = (("chip_smoke", ["--tool", "train"]) if val
+                        else ("tcvom_tpu_torch.tools.train", []))
+        cmd = ((torchrun(ranks, module)
+                + (["--dist_backend", backend] if backend else []))
+               if ranks else [sys.executable, "-m", module]) + tool
+        secs = tool_run(cmd + [
+            "--cfg", str(ROOT / "cfgs" / cfg), "--deterministic",
+            "SYSTEM.OUTDIR", str(out_root), "SYSTEM.NUM_WORKERS", "2",
+            "DATASET.PATH", str(tree), "TRAIN.LOAD_CKPT", str(ckpt),
+            "TRAIN.PRINT_FREQ", "1", *map(str, opts)],
+            f"tools.train {name}")
+        out = out_root / (Path(cfg).stem + "_agg7")
+        stats = json.loads((out / "train_stats.json").read_text())
+        state = torch.load(out / "checkpoint_1.pth", map_location="cpu")
+        val = [float(v) for v in logged(out, VAL_L_DT)]
+        emit(phase="train_ddp", run=name, torchrun=bool(ranks),
+             seconds=secs, losses=logged_losses(out), val_l_dt=val, **stats)
+        best = (torch.load(out / "best.pth", map_location="cpu")
+                if (out / "best.pth").exists() else None)
+        return logged_losses(out), state["model"], stats, val, best
+
+    # -- FBA, one rank over NCCL against the plain command -----------------
+    fba_cfg = "vmd_vmn_fba_pretrained_30ep.yaml"
+    fba_ckpt = tmp / "vmn_fba.pth"
+    plain = run("fba_plain", fba_cfg, tmp / "vmd_train", fba_ckpt, 0,
+                "TRAIN.TOTAL_STEPS", 1, val=True)
+    ddp = run("fba_ddp", fba_cfg, tmp / "vmd_train", fba_ckpt, 1,
+              "TRAIN.TOTAL_STEPS", 1, val=True)
+    err, _ = checkpoint_errors(ddp[1], plain[1])
+    best_err = (checkpoint_errors(ddp[4], plain[4])[0]
+                if ddp[4] is not None and plain[4] is not None else None)
+    rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in
+           zip(ddp[0] + ddp[3], plain[0] + plain[3])]
+    val_counts = ddp[2]["val_launches"]
+    train_counts = {k: v - val_counts.get(k, 0)
+                    for k, v in ddp[2]["launches"].items()}
+    emit(phase="train_ddp_fba", steps=len(ddp[0]),
+         ddp_step_ms=ddp[2]["later_step_s"] * 1e3,
+         plain_step_ms=plain[2]["later_step_s"] * 1e3,
+         ddp_first_step_ms=ddp[2]["first_step_s"] * 1e3,
+         plain_first_step_ms=plain[2]["first_step_s"] * 1e3,
+         val_l_dt=ddp[3], plain_val_l_dt=plain[3],
+         loss_rel_err_worst=max(rel), module_err_worst=err[:3],
+         best_err_worst=best_err[:3] if best_err else None,
+         launches=train_counts, val_launches=val_counts)
+    if len(ddp[0]) != len(plain[0]) or len(ddp[3]) != 1 or \
+            len(plain[3]) != 1 or max(rel) > DDP_LOSS_RTOL[1]:
+        fail(f"train_ddp_fba losses {ddp[0]}, val {ddp[3]} against "
+             f"{plain[0]}, {plain[3]}")
+    if err[0][0] > 1e-4 or best_err is None or best_err[0][0] > 1e-4:
+        fail(f"train_ddp_fba weights {err[:3]}, best.pth {best_err}")
+    for counts, least in ((train_counts, len(ddp[0])), (val_counts, 1)):
+        if min(counts.get(k, 0) for k in ("edt_row", "fam_window_logits")) \
+                < least:
+            fail(f"train_ddp_fba launches {train_counts}, validation "
+                 f"{val_counts} in {len(ddp[0])} steps")
+    launches["train_ddp_fba"] = train_counts
+    launches["val_ddp_fba"] = val_counts
+
+    # -- GCA, two gloo ranks on the card against one process at B = 12 -------
+    tree = tmp / "vmd_ddp"
+    make(str(tree), frames=12, hw=FRAME_HW, seed=4)
+    gca_ckpt = tmp / "vmn_gca.pth"
+    two = run("gca_2ranks", GCA_CFG, tree, gca_ckpt, 2, "TRAIN.OPTIMIZER",
+              "sgd", "TRAIN.TOTAL_STEPS", 2, backend="gloo")
+    torch.cuda.empty_cache()
+    loss, one, one_ms, one_peak = gca_b12_steps(tree, gca_ckpt)
+    jittered = [gca_b12_steps(tree, gca_ckpt, j)[1] for j in INPUT_ROUNDING]
+    base = torch.load(gca_ckpt, map_location="cpu")
+    err, stat_err = checkpoint_errors(two[1], one, base)
+    whole = update_error(two[1], one, base)
+    floor = max(update_error(j, one, base) for j in jittered)
+    limit = min(UPDATE_CEILING, max(UPDATE_FLOOR, 2 * floor))
+    floors = {}
+    for j in jittered:
+        for e, m in checkpoint_errors(j, one, base)[0]:
+            floors[m] = max(floors.get(m, 0.0), e)
+    # (error / limit, error, the jitters' move, module) of every module
+    held = sorted(((e / max(UPDATE_FLOOR, 2 * floors[m]), e, floors[m], m)
+                   for e, m in err), reverse=True)
+    rel = abs(two[0][0] - loss) / loss
+    emit(phase="train_ddp_gca2", ranks=2, batch_per_rank=6,
+         two_rank_step_ms=two[2]["later_step_s"] * 1e3,
+         two_rank_first_step_ms=two[2]["first_step_s"] * 1e3,
+         one_process_b12_step_ms=one_ms,
+         rank0_max_memory_allocated_gib=two[2].get(
+             "max_memory_allocated_gib"),
+         b12_max_memory_allocated_gib=one_peak, losses=two[0],
+         want_loss=loss, loss_rel_err=rel, update_err=whole,
+         jittered_update_err=floor, limit=limit, module_err_worst=err[:5],
+         module_err_median=float(np.median([e for e, _ in err])),
+         modules=len(held), modules_over_ceiling=sum(
+             e > UPDATE_CEILING for e, _ in err),
+         held_worst=held[:5], stat_err_worst=stat_err[:3],
+         launches=two[2]["launches"])
+    if len(two[0]) != 2 or rel > DDP_LOSS_RTOL[2]:
+        fail(f"train_ddp_gca2 losses {two[0]} against {loss}")
+    if not stat_err or stat_err[0][0] > 1e-5:
+        fail(f"train_ddp_gca2 statistics {stat_err[:3]}")
+    if whole > limit:
+        fail(f"train_ddp_gca2 update {whole}, limit {limit}")
+    if not held or held[0][0] > 1:
+        fail(f"train_ddp_gca2 module updates {held[:5]}")
+    if two[2]["launches"].get("fam_window_logits", 0) < 2:
+        fail(f"train_ddp_gca2 launches {two[2]['launches']}")
+    launches["train_ddp_gca2"] = two[2]["launches"]
+    return launches
+
+
+def pred_vmn_ddp_phase(tmp, root) -> dict:
+    """tools/pred_vmn.py as ``pred_vmn`` ran it (FBA, the fake clip's 4
+    samples, B = 1, 1088x1920, no loader workers), on two gloo ranks of
+    the one card, two samples each, against the same sweep in this
+    process with a fresh process's TF32 settings: the PNGs byte for
+    byte, the losses in loss.log within rtol 1e-6. Each rank runs
+    ``pred_vmn.main`` through this script's ``--tool``, which writes its
+    process's kernel launches; returns their sum."""
+    from tcvom_tpu_torch.tools import pred_vmn
+
+    args = ["--model", "fba", "--data", str(root), "--load",
+            str(tmp / "vmn_fba.pth"), "--trimap", "medium", "--agg_window",
+            str(WINDOW), "--batch", "1", "--n_threads", "0"]
+    save, out = tmp / "pred_vmn_one", tmp / "pred_vmn_ddp"
+    counts_dir = tmp / "pred_vmn_ddp_launches"
+    with fresh_tf32():
+        pred_vmn.main(args + ["--save", str(save)])
+    secs = tool_run(torchrun(2, "chip_smoke") + [
+        "--tool", "pred_vmn", "--launches", str(counts_dir),
+        "--dist_backend", "gloo", *args, "--save", str(out)],
+        "pred_vmn on two ranks")
+    names = sorted(p.name for p in (save / "clip_b").iterdir())
+    differ = [n for n in names if (save / "clip_b" / n).read_bytes()
+              != (out / "clip_b" / n).read_bytes()]
+
+    def losses(folder):
+        return {k: float(v) for k, v in (
+            line.split(": ") for line in
+            (folder / "loss.log").read_text().splitlines() if line)}
+
+    got, want = losses(out), losses(save)
+    rel = max(abs(got[k] - v) / max(abs(v), 1e-30) for k, v in want.items())
+    ranks = [json.loads((counts_dir / f"rank_{r}.json").read_text())
+             for r in range(2)]
+    counts = {k: sum(r.get(k, 0) for r in ranks)
+              for k in ("edt_row", "fam_window_logits")}
+    emit(phase="pred_vmn_ddp", ranks=2, backend="gloo", seconds=secs,
+         files=len(names), differing=differ, losses=got,
+         loss_rel_err_worst=rel, rank_launches=ranks)
+    if len(names) != 8 or differ or sorted(got) != sorted(want) or rel > 1e-6:
+        fail(f"pred_vmn on two ranks: {differ} differ, losses {got} "
+             f"against {want}")
+    # each rank's two samples: one trimap row pass and one logits call each
+    if any(r.get(k, 0) < 2 for r in ranks for k in counts):
+        fail(f"pred_vmn on two ranks: launches {ranks}")
+    return counts
+
+
+def tool_rank(tool: str, counts_dir: str | None, argv: list) -> None:
+    """``--tool``: ``tcvom_tpu_torch.tools.<tool>.main(argv)`` in this
+    process (a rank, under ``torch.distributed.run``), from zero launch
+    counts; ``tools.train`` validating from its first epoch. With
+    ``counts_dir``, the process's kernel launches then go to
+    ``<counts_dir>/rank_<RANK>.json``."""
+    import importlib
+
+    from tcvom_tpu_torch.ops import cuda_build
+
+    mod = importlib.import_module(f"tcvom_tpu_torch.tools.{tool}")
+    if tool == "train":
+        mod.VAL_FROM_EPOCH = 0
+    cuda_build.LAUNCHES.clear()
+    mod.main(argv)
+    if counts_dir:
+        os.makedirs(counts_dir, exist_ok=True)
+        Path(counts_dir, f"rank_{os.environ.get('RANK', '0')}.json"
+             ).write_text(json.dumps(dict(cuda_build.LAUNCHES)))
+
+
 def stream_tflop(model, in_channels: int) -> tuple[float, float]:
     """TFLOP of one encode (encoder, extract half, FAM projections; GCA's
     attention products included) and of one decoder head of the VMN
@@ -1424,12 +1835,25 @@ def probe_modules() -> dict:
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0],
+                                 allow_abbrev=False)
     ap.add_argument("--profile", metavar="FILE",
                     help="profile two bf16 stream steps of each backbone, "
                          "one pred_vmn evaluation step and two train steps; "
                          "write the tables to FILE")
-    args = ap.parse_args()
+    ap.add_argument("--tool", choices=["train", "pred_vmn"],
+                    help="(the DDP phases' runs) run tcvom_tpu_torch.tools."
+                         "TOOL with the other arguments instead; train "
+                         "validates from its first epoch")
+    ap.add_argument("--launches", metavar="DIR",
+                    help="with --tool: write this rank's kernel launches "
+                         "to DIR/rank_<RANK>.json")
+    args, rest = ap.parse_known_args()
+    if args.tool:
+        tool_rank(args.tool, args.launches, rest)
+        return
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
     t_start = time.perf_counter()
     # cuBLAS's deterministic mode (the train phases' held steps) needs its
     # workspace fixed before cuBLAS starts
@@ -1594,6 +2018,10 @@ def main():
 
     # -- 14. the training CLI in subprocesses: run, resume, frozen backbone ---
     train_cli_phase(tmp)
+
+    # -- 15. data-parallel training and pred_vmn under torch.distributed.run --
+    ddp_counts = train_ddp_phases(tmp)
+    ddp_counts["pred_vmn_ddp"] = pred_vmn_ddp_phase(tmp, root)
     tmpdir.cleanup()
 
     # every row: the launches are its own path's (counts set to 0 just
@@ -1668,6 +2096,34 @@ def main():
             dict(logits_c, path=f"val_{name}",
                  replaces="tcvom_tpu/ops/fam_pallas.py:97",
                  launches=val_counts_["fam_window_logits"], **val_res)]
+    # the DDP training runs' launches are rank 0's process's, from its
+    # train_stats.json (the steps and the first step's image grids; the
+    # validation apart); pred_vmn_ddp's are both ranks'
+    val_d = "tcvom_tpu/ops/fam_pallas.py:97"
+    kernels += [
+        dict(edt, path="train_ddp_fba",
+             launches=ddp_counts["train_ddp_fba"].get("edt_row", 0),
+             **edt_train_res["train"]),
+        dict(logits_c, path="train_ddp_fba",
+             launches=ddp_counts["train_ddp_fba"].get("fam_window_logits",
+                                                      0),
+             **logits_res[(6, 64, 64, 256)]),
+        dict(edt, path="val_ddp_fba",
+             launches=ddp_counts["val_ddp_fba"].get("edt_row", 0),
+             **edt_train_res["val_ddp"]),
+        dict(logits_c, path="val_ddp_fba", replaces=val_d,
+             launches=ddp_counts["val_ddp_fba"].get("fam_window_logits", 0),
+             **logits_res[(2, 68, 120, 256)]),
+        dict(logits_c, path="train_ddp_gca2",
+             launches=ddp_counts["train_ddp_gca2"].get("fam_window_logits",
+                                                       0),
+             **train_width_res[(36, 64, 64, 128)]),
+        dict(edt, path="pred_vmn_ddp",
+             launches=ddp_counts["pred_vmn_ddp"]["edt_row"],
+             **edt_train_res["pred_vmn"]),
+        dict(logits_c, path="pred_vmn_ddp", replaces=val_d,
+             launches=ddp_counts["pred_vmn_ddp"]["fam_window_logits"],
+             **logits_res[(2, 136, 240, 256)])]
     emit(phase="wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

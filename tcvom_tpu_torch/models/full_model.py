@@ -13,6 +13,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from tcvom_tpu_torch import parallel
 from tcvom_tpu_torch.models import registry
 from tcvom_tpu_torch.ops import losses as L
 from tcvom_tpu_torch.ops.distance import trimap_transform
@@ -144,9 +145,15 @@ def preprocess(a, fg, bg, cfg: TaskConfig, radius=None) -> dict:
 
 # ---------------------------------------------------------------------------
 # Losses (reference models/model.py:94-197, 286-345)
+#
+# ``global_batch=True``: a rank's share of each loss over the batch of every
+# rank of the process group (see ops/losses.py): the mean of the ranks'
+# values and of their gradients is the loss of the global batch, as the JAX
+# package computes it under GSPMD.
 # ---------------------------------------------------------------------------
 
-def single_image_losses(cfg: TaskConfig, preds, pre, start: int, end: int):
+def single_image_losses(cfg: TaskConfig, preds, pre, start: int, end: int,
+                        global_batch: bool = False):
     """Per-frame L_alpha, L_comp and L_grad of the non-FBA methods over the
     trimap's unknown region (models/model.py:94-127; GCA has only
     L_alpha): preds ``[B, S, H, W, 1]``. Returns (L1, L2, L3, alphas,
@@ -164,10 +171,13 @@ def single_image_losses(cfg: TaskConfig, preds, pre, start: int, end: int):
         refine = torch.where(mask > 0.5, preds[:, c], gts[:, c])
         comps[c] = fgs[:, c] * refine + bgs[:, c] * (1.0 - refine)
         alphas[c] = refine
-        l_alpha.append(L.l1_mask(refine, gts[:, c], mask))
+        l_alpha.append(L.l1_mask(refine, gts[:, c], mask,
+                                 global_batch=global_batch))
         if not gca:
-            l_comp.append(L.l1_mask(comps[c], imgs[:, c], mask))
-            l_grad.append(L.l1_grad(refine, gts[:, c], mask))
+            l_comp.append(L.l1_mask(comps[c], imgs[:, c], mask,
+                                    global_batch=global_batch))
+            l_grad.append(L.l1_grad(refine, gts[:, c], mask,
+                                    global_batch=global_batch))
     loss_a = sum(l_alpha) / len(l_alpha)
     zero = torch.zeros_like(loss_a)
     for i in range(s):
@@ -181,7 +191,7 @@ def single_image_losses(cfg: TaskConfig, preds, pre, start: int, end: int):
 
 
 def fba_single_image_losses(cfg: TaskConfig, preds, pre, start: int,
-                            end: int):
+                            end: int, global_batch: bool = False):
     """FBA composite losses (models/model.py:129-197): preds
     ``[B, S, H, W, 7]``. Returns (L_alpha_comp, L_lap, L_grad, alphas,
     comps, Fs, Bs), the last four ``[B, S, H, W, .]`` with the frames
@@ -203,22 +213,23 @@ def fba_single_image_losses(cfg: TaskConfig, preds, pre, start: int,
         comps[c] = cf * refine + cb * (1.0 - refine)
         fs[c], bs[c] = cf, cb
 
-        l_a1 = L.l1_mask(refine, gts[:, c], normalize=nrm)
+        kw = dict(normalize=nrm, global_batch=global_batch)
+        l_a1 = L.l1_mask(refine, gts[:, c], **kw)
         ac = cf * gts[:, c] + cb * (1.0 - gts[:, c])
-        l_acomp = L.l1_mask(ac, imgs[:, c], normalize=nrm)
+        l_acomp = L.l1_mask(ac, imgs[:, c], **kw)
         fbc = fgs[:, c] * refine + bgs[:, c] * (1.0 - refine)
-        l_fbc = L.l1_mask(fbc, imgs[:, c], normalize=nrm)
-        l_fb1 = (L.l1_mask(cf, fgs[:, c], normalize=nrm)
-                 + L.l1_mask(cb, bgs[:, c], normalize=nrm))
+        l_fbc = L.l1_mask(fbc, imgs[:, c], **kw)
+        l_fb1 = (L.l1_mask(cf, fgs[:, c], **kw)
+                 + L.l1_mask(cb, bgs[:, c], **kw))
         l_ac.append(l_a1 + l_acomp + 0.25 * (l_fbc + l_fb1))
 
-        l_ag = L.l1_grad(refine, gts[:, c], normalize=nrm)
-        l_excl = L.exclusion_loss(cf, cb, level=3, normalize=nrm)
+        l_ag = L.l1_grad(refine, gts[:, c], **kw)
+        l_excl = L.exclusion_loss(cf, cb, level=3, **kw)
         l_grad.append(l_ag + 0.25 * l_excl)
 
-        l_alap = L.lap_loss(refine, gts[:, c], normalize=nrm)
-        l_flap = L.lap_loss(cf, fgs[:, c], normalize=nrm)
-        l_blap = L.lap_loss(cb, bgs[:, c], normalize=nrm)
+        l_alap = L.lap_loss(refine, gts[:, c], **kw)
+        l_flap = L.lap_loss(cf, fgs[:, c], **kw)
+        l_blap = L.lap_loss(cb, bgs[:, c], **kw)
         l_lap.append(l_alap + 0.25 * (l_flap + l_blap))
     for i in range(s):
         if alphas[i] is None:
@@ -232,10 +243,13 @@ def fba_single_image_losses(cfg: TaskConfig, preds, pre, start: int,
 
 
 def attention_loss(cfg: TaskConfig, attb, attf, small_mask, scaled_gts,
-                   tam_os: int = 8):
+                   tam_os: int = 8, global_batch: bool = False):
     """L_att: BCE supervision of the FAM logits (models/model.py:286-321).
     attb/attf: ``[B, S-2, h, w, window^2]`` raw logits; small_mask
-    ``[B, S-2, h, w, 1]``; scaled_gts ``[B, S, H, W, 1]``."""
+    ``[B, S-2, h, w, 1]``; scaled_gts ``[B, S, H, W, 1]``. Each centre's
+    term is normalized by its count of unknown pixels and is 0 where
+    there are none (the count over every rank with ``global_batch``)."""
+    ranks = parallel.world() if global_batch else 1
     s = scaled_gts.shape[1]
     win = cfg.agg_window
     eps_smooth = 1.0 - cfg.label_smooth
@@ -245,6 +259,8 @@ def attention_loss(cfg: TaskConfig, attb, attf, small_mask, scaled_gts,
         cgt = avg_pool(scaled_gts[:, c], tam_os, tam_os)
         m = small_mask[:, j]                                  # [B, h, w, 1]
         cnt = m.sum()
+        if ranks > 1:
+            cnt = parallel.all_reduce_sum(cnt)
 
         def bce_term(logits, neighbor_gt):
             # labels over the window, zero-padded like F.unfold
@@ -253,7 +269,8 @@ def attention_loss(cfg: TaskConfig, attb, attf, small_mask, scaled_gts,
                 * eps_smooth
             bce = (torch.clamp_min(logits, 0) - logits * lbl
                    + torch.log1p(torch.exp(-logits.abs())))
-            return (bce * m).sum() / torch.clamp_min(cnt * win * win, 1.0)
+            return ((bce * m).sum() * ranks
+                    / torch.clamp_min(cnt * win * win, 1.0))
 
         loss = 0.5 * (bce_term(attb[:, j], scaled_gts[:, c - 1])
                       + bce_term(attf[:, j], scaled_gts[:, c + 1]))
@@ -262,14 +279,16 @@ def attention_loss(cfg: TaskConfig, attb, attf, small_mask, scaled_gts,
 
 
 def temporal_loss(cfg: TaskConfig, alphas, gts, trimasks, fs=None, bs=None,
-                  scaled_fgs=None, scaled_bgs=None):
+                  scaled_fgs=None, scaled_bgs=None,
+                  global_batch: bool = False):
     """L_dt temporal coherence for S >= 5 (models/model.py:326-345)."""
     s = alphas.shape[1]
 
     def dt(pred, gt, normalize=True):
         terms = [L.l1_mask(pred[:, c] - pred[:, c + 1],
                            gt[:, c] - gt[:, c + 1], trimasks[:, c],
-                           normalize=normalize) for c in range(1, s - 2)]
+                           normalize=normalize, global_batch=global_batch)
+                 for c in range(1, s - 2)]
         return sum(terms) / len(terms)
 
     if s < 5:
@@ -318,13 +337,15 @@ def _run_single(model, pre, cfg: TaskConfig, c: int) -> torch.Tensor:
     return model(inputs, extras).permute(0, 2, 3, 1)
 
 
-def _losses(cfg: TaskConfig, preds, pre, start: int, end: int):
+def _losses(cfg: TaskConfig, preds, pre, start: int, end: int,
+            global_batch: bool = False):
     """(L1, L2, L3, alphas, comps, Fs, Bs): FBA's composite losses, or the
     other methods' single-image losses with the ground truth's scaled
     foreground and background as Fs and Bs."""
     if cfg.method == "fba":
-        return fba_single_image_losses(cfg, preds, pre, start, end)
-    return (*single_image_losses(cfg, preds, pre, start, end),
+        return fba_single_image_losses(cfg, preds, pre, start, end,
+                                       global_batch)
+    return (*single_image_losses(cfg, preds, pre, start, end, global_batch),
             pre["scaled_fgs"], pre["scaled_bgs"])
 
 
@@ -336,12 +357,14 @@ def _center_only(pred_c: torch.Tensor, s: int, c: int) -> torch.Tensor:
     return preds
 
 
-def forward_single(model, batch: dict, cfg: TaskConfig, radius=None):
+def forward_single(model, batch: dict, cfg: TaskConfig, radius=None,
+                   global_batch: bool = False):
     """FullModel forward (models/model.py:199-246). A single-frame model
     runs the center frame only and is supervised there; a VMN model (the
     TAM-pretrain configuration, pretrain_ddp.py) runs the temporal module
     over all frames and supervises frames 1..S-2 without the video-only
-    L_att and L_dt. Returns (losses, aux)."""
+    L_att and L_dt. ``global_batch``: this rank's share of the losses of
+    every rank's batch. Returns (losses, aux)."""
     s = batch["a"].shape[1]
     pre = preprocess(batch["a"], batch["fg"], batch["bg"], cfg, radius)
     if cfg.is_vmn:
@@ -351,23 +374,29 @@ def forward_single(model, batch: dict, cfg: TaskConfig, radius=None):
         c = s // 2
         preds = _center_only(_run_single(model, pre, cfg, c), s, c)
         start, end = c, c + 1
-    l1, l2, l3, alphas, comps, fs, bs = _losses(cfg, preds, pre, start, end)
+    l1, l2, l3, alphas, comps, fs, bs = _losses(cfg, preds, pre, start, end,
+                                                global_batch)
     return ({"L1": l1, "L2": l2, "L3": l3},
             dict(pre=pre, alphas=alphas, comps=comps, Fs=fs, Bs=bs))
 
 
-def forward_vmd(model, batch: dict, cfg: TaskConfig, radius=None):
+def forward_vmd(model, batch: dict, cfg: TaskConfig, radius=None,
+                global_batch: bool = False):
     """FullModel_VMD forward, the full video loss stack
     (models/model.py:258-357). ``batch``: a, fg, bg ``[B, S, H, W, .]``
-    in [0, 255] on the model's device; ``radius``: see :func:`make_trimap`.
-    Returns (losses {L1, L2, L3, L_dt, L_att}, aux)."""
+    in [0, 255] on the model's device; ``radius``: see :func:`make_trimap`;
+    ``global_batch``: this rank's share of the losses of every rank's
+    batch. Returns (losses {L1, L2, L3, L_dt, L_att}, aux)."""
     s = batch["a"].shape[1]
     pre = preprocess(batch["a"], batch["fg"], batch["bg"], cfg, radius)
     preds, attb, attf, small_mask = _run_vmn(model, pre, cfg)
-    l1, l2, l3, alphas, comps, fs, bs = _losses(cfg, preds, pre, 1, s - 1)
-    l_att = attention_loss(cfg, attb, attf, small_mask, pre["scaled_gts"])
+    l1, l2, l3, alphas, comps, fs, bs = _losses(cfg, preds, pre, 1, s - 1,
+                                                global_batch)
+    l_att = attention_loss(cfg, attb, attf, small_mask, pre["scaled_gts"],
+                           global_batch=global_batch)
     l_dt = temporal_loss(cfg, alphas, pre["scaled_gts"], pre["trimasks"],
-                         fs, bs, pre["scaled_fgs"], pre["scaled_bgs"])
+                         fs, bs, pre["scaled_fgs"], pre["scaled_bgs"],
+                         global_batch=global_batch)
     losses = {"L1": l1, "L2": l2, "L3": l3, "L_dt": l_dt, "L_att": l_att}
     return losses, dict(pre=pre, alphas=alphas, comps=comps, Fs=fs, Bs=bs)
 

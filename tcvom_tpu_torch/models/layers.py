@@ -6,6 +6,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tcvom_tpu_torch import parallel
+
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """``x`` in f32, or in f64 when it is f64: the f32 islands of a bf16
@@ -68,7 +70,15 @@ class BatchNorm(nn.BatchNorm2d):
     One statistics pass: ``F.batch_norm`` at momentum 1 writes the batch
     mean and unbiased variance into scratch buffers beside the output, and
     the running statistics move toward that mean and that variance times
-    (n-1)/n."""
+    (n-1)/n.
+
+    Under a process group of more than one rank the batch is every rank's
+    (``parallel``; the JAX package's BatchNorm over the global batch under
+    GSPMD, tcvom_tpu/parallel/mesh.py:10-11): the mean and then the biased
+    variance are sums over the ranks through a differentiable all-reduce,
+    and the running statistics move toward those, alike on every rank.
+    ``torch.nn.SyncBatchNorm`` would update them from the unbiased
+    variance and runs on the card only."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
@@ -76,16 +86,35 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.momentum is None:
             return super().forward(x)
+        if parallel.world() > 1:
+            return self._synced(x)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
         n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.num_batches_tracked.add_(1)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+        self._update(mean, var * ((n - 1) / n))
         return y
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Training forward over every rank's batch (each rank's of the
+        same shape, as the sharded loader gives them): two passes, the
+        mean and then the centred second moment, each summed over the
+        ranks."""
+        dims = (0, 2, 3)
+        count = float(x.numel() // x.shape[1] * parallel.world())
+        mean = parallel.all_reduce_sum_grad(x.sum(dims)) / count
+        xc = x - mean[None, :, None, None]
+        var = parallel.all_reduce_sum_grad((xc * xc).sum(dims)) / count
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        self._update(mean.detach(), var.detach())
+        return xc * scale[None, :, None, None] + self.bias[None, :, None, None]
+
+    @torch.no_grad()
+    def _update(self, mean: torch.Tensor, biased_var: torch.Tensor) -> None:
+        self.num_batches_tracked.add_(1)
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(biased_var, self.momentum)
 
 
 class Dropout(nn.Dropout):
@@ -93,15 +122,25 @@ class Dropout(nn.Dropout):
     one is set (the trainer sets one, seeded from its own: a step is then
     reproducible from the trainer's seed), else from torch's global RNG.
     Elements are zeroed with probability ``p`` and the rest scaled by
-    ``1 / (1 - p)``; eval mode is the identity."""
+    ``1 / (1 - p)``; eval mode is the identity. Under a process group of
+    more than one rank the mask is drawn for every rank's rows (the
+    generator is seeded alike on each) and the rank keeps its own, so
+    that a step of the ranks is the one-process step on their global
+    batch."""
 
     generator: torch.Generator | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.generator is None:
             return super().forward(x)
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self.generator)
+        n = parallel.world()
+        if n == 1:
+            keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                                  generator=self.generator)
+        else:
+            keep = x.new_empty((x.shape[0] * n,) + x.shape[1:]).bernoulli_(
+                1.0 - self.p, generator=self.generator)
+            keep = keep[parallel.shard_slice(keep.shape[0])]
         return x * keep / (1.0 - self.p)
 
 

@@ -7,12 +7,25 @@ tcvom_tpu/ops/losses.py), with the reference's normalization constants
 - ``exclusion_loss`` 3-level F/B gradient exclusion
 - ``lap_loss``       5-level Laplacian pyramid L1 (OpenCV pyrDown/pyrUp)
 - ``sparsity_loss``
+
+``global_batch=True`` computes a rank's share of the loss over the batch
+of every rank of the process group (``parallel``), the JAX package's loss
+on the global batch under GSPMD: a count that normalizes is summed over
+the ranks (no gradient), and a sum over the batch is scaled by the
+number of ranks, so that the mean of the ranks' values, and DDP's mean of
+their gradients, are the global batch's; a mean over the rank's own
+batch is left as it is (every rank's batch has the same size). The
+batch-wide means inside ``exclusion_loss``'s scale factors are taken over
+every rank through a differentiable all-reduce. With one rank (or
+without ``global_batch``) each function is the one-batch loss: the
+factor is 1, an exact multiply.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from tcvom_tpu_torch import parallel
 from tcvom_tpu_torch.ops.image import avg_pool, image_gradient
 
 EPSILON = 1.001e-5
@@ -24,44 +37,65 @@ _GAUSS_5x5 = torch.tensor([[1., 4., 6., 4., 1.],
                            [1., 4., 6., 4., 1.]]) / 256.0
 
 
+def _ranks(global_batch: bool) -> int:
+    """The ranks a ``global_batch`` loss spans: 1 without it."""
+    return parallel.world() if global_batch else 1
+
+
 def l1_mask(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor | None = None,
-            epsilon: float = EPSILON, normalize: bool = True) -> torch.Tensor:
+            epsilon: float = EPSILON, normalize: bool = True,
+            global_batch: bool = False) -> torch.Tensor:
     """Masked L1. With a mask and ``normalize``, divides by the count of
-    mask pixels above ``epsilon`` clamped to [epsilon, y.numel() + 1]."""
+    mask pixels above ``epsilon`` clamped to [epsilon, y.numel() + 1]
+    (both over every rank with ``global_batch``)."""
+    n = _ranks(global_batch)
     res = torch.abs(x - y)
     if mask is not None:
         res = res * mask
         if normalize:
-            safe = torch.clamp((mask > epsilon).to(x.dtype).sum(), epsilon,
-                               float(y.numel()) + 1)
-            return res.sum() / safe
-        return res.sum()
-    return res.mean() if normalize else res.sum()
+            count = (mask > epsilon).to(x.dtype).sum()
+            if n > 1:
+                count = parallel.all_reduce_sum(count)
+            safe = torch.clamp(count, epsilon, float(n * y.numel()) + 1)
+            return res.sum() * n / safe
+        return res.sum() * n
+    if normalize:
+        return res.mean()
+    return res.sum() * n
 
 
 def l1_grad(pred: torch.Tensor, gt: torch.Tensor,
             mask: torch.Tensor | None = None, epsilon: float = EPSILON,
-            normalize: bool = True) -> torch.Tensor:
+            normalize: bool = True, global_batch: bool = False
+            ) -> torch.Tensor:
     """L1 between gradient magnitudes ``sqrt(dx^2 + dy^2 + eps)``."""
     fx, fy = image_gradient(pred)
     tx, ty = image_gradient(gt)
     mag_f = torch.sqrt(fx * fx + fy * fy + epsilon)
     mag_t = torch.sqrt(tx * tx + ty * ty + epsilon)
-    return l1_mask(mag_f, mag_t, mask=mask, normalize=normalize)
+    return l1_mask(mag_f, mag_t, mask=mask, normalize=normalize,
+                   global_batch=global_batch)
 
 
 def exclusion_loss(img1: torch.Tensor, img2: torch.Tensor, level: int = 3,
-                   epsilon: float = EPSILON,
-                   normalize: bool = True) -> torch.Tensor:
+                   epsilon: float = EPSILON, normalize: bool = True,
+                   global_batch: bool = False) -> torch.Tensor:
     """Gradient exclusion between predicted F and B over ``level`` 2x
-    average-pooled levels; per-sample means over (H, W, C)."""
+    average-pooled levels; per-sample means over (H, W, C). Each level's
+    scale factors are ratios of means over the whole batch."""
+    n = _ranks(global_batch)
+
+    def batch_mean(t):
+        return (parallel.all_reduce_sum_grad(t.mean()) / n if n > 1
+                else t.mean())
+
     gradx, grady = [], []
     red = (-3, -2, -1)
     for _ in range(level):
         gx1, gy1 = image_gradient(img1)
         gx2, gy2 = image_gradient(img2)
-        ax = 2.0 * gx1.abs().mean() / (gx2.abs().mean() + epsilon)
-        ay = 2.0 * gy1.abs().mean() / (gy2.abs().mean() + epsilon)
+        ax = 2.0 * batch_mean(gx1.abs()) / (batch_mean(gx2.abs()) + epsilon)
+        ay = 2.0 * batch_mean(gy1.abs()) / (batch_mean(gy2.abs()) + epsilon)
         gx1s = torch.sigmoid(gx1) * 2 - 1
         gy1s = torch.sigmoid(gy1) * 2 - 1
         gx2s = torch.sigmoid(gx2 * ax) * 2 - 1
@@ -76,11 +110,13 @@ def exclusion_loss(img1: torch.Tensor, img2: torch.Tensor, level: int = 3,
     gy = sum(grady) / float(level)
     if normalize:
         return gx.mean() + gy.mean()
-    return gx.sum() + gy.sum()
+    return (gx.sum() + gy.sum()) * n
 
 
 def sparsity_loss(pred: torch.Tensor, trimask: torch.Tensor, eps: float = 1e-5,
                   gamma: float = 0.9) -> torch.Tensor:
+    """The sparsity prior's sum over the unknown region (no driver calls
+    it; it has no ``global_batch``)."""
     m = (trimask > 0.5).to(pred.dtype)
     term = (pred + eps) ** gamma + (1.0 - pred + eps) ** gamma - 1.0
     return (term * m).sum()
@@ -107,7 +143,8 @@ def _lap_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
 
 
 def lap_loss(img: torch.Tensor, tgt: torch.Tensor, max_levels: int = 5,
-             normalize: bool = True) -> torch.Tensor:
+             normalize: bool = True, global_batch: bool = False
+             ) -> torch.Tensor:
     """Laplacian-pyramid L1 over ``max_levels`` levels with 2^level
     weights, divided by ``tgt.numel()`` when ``normalize``. The reference
     call sites pass no mask, and a full-resolution mask cannot weight the
@@ -119,4 +156,6 @@ def lap_loss(img: torch.Tensor, tgt: torch.Tensor, max_levels: int = 5,
                for lvl, (a, b) in enumerate(zip(
                    _lap_pyramid(nchw(img), max_levels),
                    _lap_pyramid(nchw(tgt), max_levels))))
-    return loss / float(tgt.numel()) if normalize else loss
+    if normalize:
+        return loss / float(tgt.numel())
+    return loss * _ranks(global_batch)

@@ -5,6 +5,12 @@ the mean SAD / MSE over the unknown region.
 
     python -m tcvom_tpu_torch.tools.pred_single --model fba --data VMD108/ \
         --load ckpt.pth --trimap medium --save out/ [--device cpu]
+
+Under ``python -m torch.distributed.run --nproc_per_node N`` each rank
+reads every N-th batch and writes its own PNGs, the files of a
+one-process sweep; mSAD and MSE are taken over every rank's samples, and
+rank 0 writes loss.log once every rank is done (``--dist_backend gloo``
+for two ranks on one card).
 """
 from __future__ import annotations
 
@@ -12,14 +18,17 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
+from tcvom_tpu_torch import parallel
 from tcvom_tpu_torch.data.loader import make_loader
 from tcvom_tpu_torch.data.vmd import VideoMattingDataset
 from tcvom_tpu_torch.infer.predict import (TRIMAP_DILATION,
                                            make_single_eval_step,
                                            write_pred_pngs)
 from tcvom_tpu_torch.models.full_model import TaskConfig
-from tcvom_tpu_torch.tools.common import MODELS, add_device_arg, load_model
+from tcvom_tpu_torch.tools.common import (MODELS, add_device_arg, init_ranks,
+                                          load_model)
 from tcvom_tpu_torch.tools.pred_vmn import default_save
 from tcvom_tpu_torch.utils.logging import print_loss_dict
 
@@ -47,7 +56,7 @@ def parse_args(argv=None):
     p.add_argument("--vis", action="store_true",
                    help="side-by-side visualizations with a caption (not "
                         "ported: they draw text with OpenCV)")
-    add_device_arg(p)
+    add_device_arg(p, distributed=True)
     return p.parse_args(argv)
 
 
@@ -60,6 +69,11 @@ def main(argv=None) -> dict:
     if args.vis:
         raise NotImplementedError("--vis draws its captions with OpenCV: "
                                   "ROADMAP.md Queue 1 item 9")
+    with init_ranks(args):
+        return _sweep(args)
+
+
+def _sweep(args) -> dict:
     args.save = args.save or default_save("single", args)
     os.makedirs(args.save, exist_ok=True)
 
@@ -69,7 +83,8 @@ def main(argv=None) -> dict:
         data_root=args.data, image_shape=tuple(args.image_shape), mode="val",
         use_subset=args.subset, plus1=False, precomputed_val=args.data,
         sample_length=3, no_flow=True)
-    loader = make_loader(dataset, args.batch, args.n_threads)
+    loader = make_loader(dataset, args.batch, args.n_threads,
+                         num_shards=parallel.world(), shard=parallel.rank())
     model = load_model(args.model, args)
     step = make_single_eval_step(model, cfg)
 
@@ -91,8 +106,13 @@ def main(argv=None) -> dict:
         crop = (min(1080, alphas.shape[1]), alphas.shape[2])
         write_pred_pngs(args.save, names, alphas, tris, crop_hw=crop)
         print(names[-1])
+    msad, mse, count = parallel.all_reduce_sum(torch.tensor(
+        [msad, mse, count], dtype=torch.float64,
+        device=args.device)).tolist()
     res = {"mSAD": msad / max(count, 1), "MSE": mse / max(count, 1)}
-    print_loss_dict(res, os.path.join(args.save, "loss.log"))
+    parallel.barrier()
+    if parallel.rank() == 0:
+        print_loss_dict(res, os.path.join(args.save, "loss.log"))
     return res
 
 

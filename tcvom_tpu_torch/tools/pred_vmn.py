@@ -4,6 +4,13 @@ crop) and loss.log; feed the output directory to calc_metric.
 
     python -m tcvom_tpu_torch.tools.pred_vmn --model fba --data VMD108/ \
         --load ckpt.pth --trimap medium --save out/ [--device cpu]
+
+Under ``python -m torch.distributed.run --nproc_per_node N`` (the JAX
+tool's sweep over every device) each rank reads every N-th batch of
+``--batch`` samples and writes its own PNGs, the files of a one-process
+sweep; the losses are summed over the ranks, and rank 0 writes loss.log
+once every rank is done. ``--dist_backend gloo`` for two ranks on one
+card.
 """
 from __future__ import annotations
 
@@ -11,12 +18,16 @@ import argparse
 import os
 import time
 
+import torch
+
+from tcvom_tpu_torch import parallel
 from tcvom_tpu_torch.data.loader import make_loader
 from tcvom_tpu_torch.data.vmd import VideoMattingDataset
 from tcvom_tpu_torch.infer.predict import (TRIMAP_DILATION, make_vmd_eval_step,
                                            write_pred_pngs)
 from tcvom_tpu_torch.models.full_model import TaskConfig
-from tcvom_tpu_torch.tools.common import MODELS, add_device_arg, load_model
+from tcvom_tpu_torch.tools.common import (MODELS, add_device_arg, init_ranks,
+                                          load_model)
 from tcvom_tpu_torch.utils.logging import print_loss_dict
 
 LOSS_NAMES = {"L_alpha": "L1", "L_comp": "L2", "L_grad": "L3",
@@ -40,7 +51,7 @@ def parse_args(argv=None):
     p.add_argument("--space", type=int, default=1,
                    help="split the image H axis over this many cards (not "
                         "ported: ROADMAP.md Queue 1 item 12)")
-    add_device_arg(p)
+    add_device_arg(p, distributed=True)
     return p.parse_args(argv)
 
 
@@ -56,11 +67,16 @@ def main(argv=None, stats: dict | None = None) -> dict:
     ``setup`` (the dataset, the model and its checkpoint), ``load_wait``
     (starting the loader's workers and waiting on them), ``step`` (the
     evaluation step, its losses read on the host) and ``write`` (the
-    mattes read back and their PNGs)."""
+    mattes read back and their PNGs), this rank's."""
     args = parse_args(argv)
     if args.space != 1:
         raise NotImplementedError("--space splits a frame over several "
                                   "cards: ROADMAP.md Queue 1 item 12")
+    with init_ranks(args):
+        return _sweep(args, stats)
+
+
+def _sweep(args, stats: dict | None) -> dict:
     args.save = args.save or default_save("vmd", args)
     os.makedirs(args.save, exist_ok=True)
     stats = {} if stats is None else stats
@@ -78,7 +94,8 @@ def main(argv=None, stats: dict | None = None) -> dict:
         data_root=args.data, image_shape=tuple(args.image_shape), mode="val",
         use_subset=args.subset, plus1=False, precomputed_val=args.data,
         sample_length=3, no_flow=True)
-    loader = make_loader(dataset, args.batch, args.n_threads)
+    loader = make_loader(dataset, args.batch, args.n_threads,
+                         num_shards=parallel.world(), shard=parallel.rank())
     model = load_model(model_name, args, args.agg_window)
     step = make_vmd_eval_step(model, cfg)
 
@@ -102,9 +119,13 @@ def main(argv=None, stats: dict | None = None) -> dict:
                                           for k, v in losses.items()))
         t0 = lap("write", t0)
     lap("load_wait", t0)
-    for k in eval_loss:
-        eval_loss[k] /= float(len(dataset))
-    print_loss_dict(eval_loss, os.path.join(args.save, "loss.log"))
+    sums = parallel.all_reduce_sum(torch.tensor(
+        list(eval_loss.values()), dtype=torch.float64, device=args.device))
+    eval_loss = {k: float(v) / float(len(dataset))
+                 for k, v in zip(eval_loss, sums.tolist())}
+    parallel.barrier()
+    if parallel.rank() == 0:
+        print_loss_dict(eval_loss, os.path.join(args.save, "loss.log"))
     return eval_loss
 
 

@@ -1,10 +1,27 @@
-"""Training on one card (port of tools/train.py: the reference's
-train_ddp.py, train_single_ddp.py and pretrain_ddp.py), for any of the
-``cfgs/*.yaml``:
+"""Training (port of tools/train.py: the reference's train_ddp.py,
+train_single_ddp.py and pretrain_ddp.py), for any of the
+``cfgs/*.yaml``, on one card:
 
     python -m tcvom_tpu_torch.tools.train --cfg cfgs/<name>.yaml \\
         [--driver vmd|single] [--dataset vmd|dim] [--sample_length N] \\
         [--eps E] [--device cuda|cpu] [KEY VALUE ...]
+
+or data-parallel, one process a rank, under ``torch.distributed.run``:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m tcvom_tpu_torch.tools.train --cfg cfgs/<name>.yaml \\
+        [--dist_backend nccl|gloo] [... as above]
+
+Each rank trains on ``TRAIN.BATCH_SIZE_PER_GPU`` samples of a global batch
+of that times N (the sharded loader, ``data/loader.py``) and a step is the
+one-process step on the global batch (``train/trainer.py``); the
+epoch has the per-rank loader's length. The ranks take the cards
+``LOCAL_RANK`` mod the count over NCCL; two ranks on one card need
+``--dist_backend gloo`` (NCCL refuses them). Rank 0 alone writes the log
+``<cfg>_<time>_train.log``, the image grids, the checkpoints,
+``best.pth`` and ``train_stats.json``; rank r > 0 logs to
+``..._train_p<r>.log``. ``--device cpu`` trains the ranks on the CPU over
+gloo.
 
 The model and its optimizer from the config, the weights staged as in the
 JAX tool (``TRAIN.LOAD_IMAGENET``, then ``LOAD_CKPT`` (a ``.pth``), then
@@ -13,10 +30,10 @@ steps_per_epoch``), then the epochs: a log line every ``PRINT_FREQ``
 steps, image grids every ``IMAGE_FREQ``, validation L_dt from epoch
 ``VAL_FROM_EPOCH`` (video trainer), a train state
 ``checkpoint_<epoch>.pth`` after each epoch and ``best.pth`` (weights)
-when validation improves, all under ``<OUTDIR>/<cfg name><EXP_SUFFIX>/``.
-It runs on the card unless ``--device cpu`` is given, in f32
-(``TRAIN.BF16`` is refused). ``--remat`` and the multi-host wiring of the
-JAX tool are not ported (ROADMAP.md Queue 1 item 12).
+when validation improves, all under ``<OUTDIR>/<cfg name><EXP_SUFFIX>/``;
+every rank loads the same weights and train state. It runs on the card
+unless ``--device cpu`` is given, in f32 (``TRAIN.BF16`` is refused).
+The JAX tool's ``--remat`` is not ported (ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -27,17 +44,18 @@ import time
 
 import torch
 
+from tcvom_tpu_torch import parallel
 from tcvom_tpu_torch.config import load_config
 from tcvom_tpu_torch.data.loader import make_loader
 from tcvom_tpu_torch.data.vmd import VideoMattingDataset
 from tcvom_tpu_torch.models.full_model import TaskConfig
-from tcvom_tpu_torch.tools.common import add_device_arg
+from tcvom_tpu_torch.ops import cuda_build
+from tcvom_tpu_torch.tools.common import add_device_arg, init_ranks
 from tcvom_tpu_torch.train.trainer import MattingTrainer
 from tcvom_tpu_torch.utils.checkpoint import (load_imagenet_encoder,
                                               load_weights,
                                               restore_train_state,
                                               save_train_state, save_weights)
-from tcvom_tpu_torch.utils.device import resolve_device
 from tcvom_tpu_torch.utils.logging import AverageMeter, create_logger
 from tcvom_tpu_torch.utils.visualize import (write_training_images,
                                              write_val_triplets)
@@ -59,12 +77,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sample_length", type=int, default=None)
     p.add_argument("--eps", type=float, default=0.0,
                    help="alpha snapping for pretrain (1e-2 in pretrain_ddp)")
+    p.add_argument("--deterministic", action="store_true",
+                   help="deterministic algorithms where torch has them "
+                        "(torch.use_deterministic_algorithms, warn_only): "
+                        "a rerun takes the same steps up to the ops that "
+                        "have none")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of steps 10-20 here")
     p.add_argument("--val_image_batches", type=int, default=2,
                    help="val batches to dump as pred/tri/gt PNG triplets "
                         "per epoch (reference train_ddp.py:129-138)")
-    add_device_arg(p)
+    add_device_arg(p, distributed=True)
     p.add_argument("opts", nargs=argparse.REMAINDER)
     return p
 
@@ -101,10 +124,16 @@ def _sync(device) -> None:
 
 def main(argv=None) -> dict:
     """Train; returns the run's timing (also written to
-    ``train_stats.json`` in the output folder): ``steps`` taken,
+    ``train_stats.json`` in the output folder by rank 0): ``steps`` taken,
     ``setup_s`` (config to the first epoch), ``step_s`` (mean seconds a
-    step, ending in a device synchronize), ``load_wait_s`` (mean seconds a
-    step waited on the loader) and the last ``step``."""
+    step, ending in a device synchronize; ``first_step_s`` the first's,
+    ``later_step_s`` the mean of the others), ``load_wait_s`` (mean
+    seconds a step waited on the loader), the last ``step``, the
+    ``ranks`` and their ``backend`` (None without a process group), this
+    process's kernel ``launches`` by name (``val_launches`` those of the
+    validations among them) and, on the card, its
+    ``max_memory_allocated_gib``. Under ``torch.distributed.run`` the
+    process group lives as long as the call."""
     args = build_argparser().parse_args(argv)
     t_setup = time.perf_counter()
     cfg = load_config(args.cfg, args.opts)
@@ -113,20 +142,33 @@ def main(argv=None) -> dict:
             "TRAIN.BF16: bf16 training is experimental in the JAX package "
             "(BF16_TRAIN_GUARD.json: all_ok false) and not ported; the port "
             "trains in f32 (ROADMAP.md Queue 1 item 11)")
-    device = resolve_device(args.device)
+    if args.deterministic:
+        # cuBLAS reads its workspace setting when it starts
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    with init_ranks(args) as device:
+        return _train(args, cfg, device, t_setup)
+
+
+def _train(args, cfg, device, t_setup: float) -> dict:
+    rank, ranks = parallel.rank(), parallel.world()
+    lead = rank == 0
     cfg_name = (os.path.splitext(os.path.basename(args.cfg))[0]
                 + cfg.SYSTEM.EXP_SUFFIX)
-    logger, outdir = create_logger(cfg.SYSTEM.OUTDIR, cfg_name, "train")
-    cfg.dump(os.path.join(outdir, "config.yaml"))
+    logger, outdir = create_logger(cfg.SYSTEM.OUTDIR, cfg_name,
+                                   "train" if lead else f"train_p{rank}")
+    if lead:
+        cfg.dump(os.path.join(outdir, "config.yaml"))
     logger.info("config:\n%s", cfg)
-    logger.info("device: %s", torch.cuda.get_device_name(device)
-                if device.type == "cuda" else "cpu")
+    logger.info("device: %s, rank %d of %d", torch.cuda.get_device_name(
+        device) if device.type == "cuda" else "cpu", rank, ranks)
 
     seed = cfg.SYSTEM.RANDOM_SEED if cfg.SYSTEM.RANDOM_SEED > 0 else 0
     train_ds, val_ds = _datasets(cfg, args, seed)
     bs = cfg.TRAIN.BATCH_SIZE_PER_GPU
     train_loader = make_loader(train_ds, bs, cfg.SYSTEM.NUM_WORKERS,
-                               shuffle=True, seed=seed, drop_last=True)
+                               shuffle=True, seed=seed, drop_last=True,
+                               num_shards=ranks, shard=rank)
     steps_per_epoch = len(train_loader)
     total_iters = cfg.TRAIN.TOTAL_STEPS * steps_per_epoch
 
@@ -158,7 +200,8 @@ def main(argv=None) -> dict:
                   else ["L_alpha_comp", "L_lap", "L_grad"])
     best_loss = 1e8
     stats = {"steps": 0, "setup_s": time.perf_counter() - t_setup,
-             "step_s": 0.0, "load_wait_s": 0.0}
+             "step_s": 0.0, "load_wait_s": 0.0, "ranks": ranks,
+             "val_launches": {}}
     tic0 = time.time()
     for epoch in range(start_epoch, cfg.TRAIN.TOTAL_STEPS):
         train_loader.sampler.set_epoch(epoch)
@@ -178,7 +221,10 @@ def main(argv=None) -> dict:
             dev_batch = _on(batch, device)
             state, metrics = trainer.train_step(state, dev_batch)
             _sync(device)
-            stats["step_s"] += time.perf_counter() - t_step
+            secs = time.perf_counter() - t_step
+            stats["step_s"] += secs
+            if stats["steps"] == 0:
+                stats["first_step_s"] = secs
             stats["steps"] += 1
             if i_iter % cfg.TRAIN.PRINT_FREQ == 0:
                 ave_loss.update(metrics["loss"].item())
@@ -197,10 +243,13 @@ def main(argv=None) -> dict:
                             f" L_att: {metrics['L_att'].item():.4f}")
                 logger.info(msg)
             if i_iter % cfg.TRAIN.IMAGE_FREQ == 0:
-                write_training_images(
-                    os.path.join(outdir, "training_images"),
-                    trainer.vis_step(state, dev_batch),
-                    epoch * steps_per_epoch + i_iter)
+                # every rank draws the step's radii (and, with ranks, joins
+                # the losses' reductions); rank 0 writes its own rows
+                aux = trainer.vis_step(state, dev_batch)
+                if lead:
+                    write_training_images(
+                        os.path.join(outdir, "training_images"), aux,
+                        epoch * steps_per_epoch + i_iter)
             t_wait = time.perf_counter()
         if prof is not None:
             _stop_profiler(prof, args.profile_dir, logger)
@@ -208,40 +257,61 @@ def main(argv=None) -> dict:
         val_loss = best_loss
         if (val_ds is not None and epoch >= VAL_FROM_EPOCH
                 and args.driver == "vmd"):
+            before = dict(cuda_build.LAUNCHES)
             val_loss = _validate(trainer, state, val_ds, bs, cfg, args,
                                  os.path.join(outdir, "val_images",
                                               f"epoch_{epoch}"), device)
+            for k, v in cuda_build.LAUNCHES.items():
+                stats["val_launches"][k] = (stats["val_launches"].get(k, 0)
+                                            + v - before.get(k, 0))
             logger.info("epoch %d val L_dt: %.6f", epoch, val_loss)
 
+        # the model itself (not its DDP wrapper), so that the keys are the
+        # reference's; the ranks' copies are equal. val_loss is the global
+        # batch's on every rank, so all agree on best.pth
         ckpt = os.path.join(outdir, f"checkpoint_{epoch + 1}.pth")
-        save_train_state(ckpt, state)
-        logger.info("=> saved checkpoint to %s", ckpt)
+        if lead:
+            save_train_state(ckpt, state)
+            logger.info("=> saved checkpoint to %s", ckpt)
+        parallel.barrier()
         if val_loss < best_loss:
             best_loss = val_loss
-            save_weights(state.model, os.path.join(outdir, "best.pth"))
-            logger.info("=> new minimum loss. saved best")
+            if lead:
+                save_weights(state.model, os.path.join(outdir, "best.pth"))
+                logger.info("=> new minimum loss. saved best")
+            parallel.barrier()
     logger.info("Time: %d sec.", int(time.time() - tic0))
     n = max(stats["steps"], 1)
+    if stats["steps"] > 1:
+        stats["later_step_s"] = ((stats["step_s"] - stats["first_step_s"])
+                                 / (stats["steps"] - 1))
     stats.update(step=state.step, step_s=stats["step_s"] / n,
-                 load_wait_s=stats["load_wait_s"] / n)
-    with open(os.path.join(outdir, "train_stats.json"), "w") as f:
-        json.dump(stats, f)
+                 load_wait_s=stats["load_wait_s"] / n,
+                 launches=dict(cuda_build.LAUNCHES),
+                 backend=parallel.backend())
+    if device.type == "cuda":
+        stats["max_memory_allocated_gib"] = (
+            torch.cuda.max_memory_allocated(device) / 2**30)
+    if lead:
+        with open(os.path.join(outdir, "train_stats.json"), "w") as f:
+            json.dump(stats, f)
     logger.info("Done")
     return stats
 
 
 def _validate(trainer, state, val_ds, bs: int, cfg, args, img_dir: str,
               device) -> float:
-    """Mean validation L_dt over whole batches (train_ddp.py:102-169), the
-    first ``--val_image_batches`` batches' center frames written as
-    pred/tri/gt PNG triplets."""
-    loader = make_loader(val_ds, bs, cfg.SYSTEM.NUM_WORKERS, drop_last=True)
+    """Mean validation L_dt over whole global batches
+    (train_ddp.py:102-169), the first ``--val_image_batches`` batches'
+    center frames of rank 0 written as pred/tri/gt PNG triplets."""
+    loader = make_loader(val_ds, bs, cfg.SYSTEM.NUM_WORKERS, drop_last=True,
+                         num_shards=parallel.world(), shard=parallel.rank())
     meter, dumped = AverageMeter(), 0
     for bi, batch in enumerate(loader):
         l_dt, (pred_c, tri_c, gt_c) = trainer.val_dt_step(
             state, _on(batch, device))
         meter.update(l_dt.item())
-        if bi < args.val_image_batches:
+        if bi < args.val_image_batches and parallel.rank() == 0:
             dumped = write_val_triplets(img_dir, pred_c, tri_c, gt_c, dumped)
     return meter.average()
 

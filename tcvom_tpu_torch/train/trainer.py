@@ -1,7 +1,7 @@
 """Training driver (port of tcvom_tpu/train/trainer.py): the optimizers,
 the poly/const schedules, the frozen-backbone parameter filter and the
-train, eval, validation and visualization steps on one device, for all
-eight models.
+train, eval, validation and visualization steps, for all eight models, on
+one device or data-parallel over the ranks of a process group.
 
 One train step updates, besides the parameters, every BatchNorm's running
 statistics and every spectral-norm conv's ``u`` and ``v`` that run in
@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from tcvom_tpu_torch import parallel
 from tcvom_tpu_torch.models import full_model as FM
 from tcvom_tpu_torch.models import registry
 from tcvom_tpu_torch.models.layers import Dropout
@@ -77,6 +78,10 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     dropout_generator: torch.Generator | None = None
+    # the model in DistributedDataParallel, which a data-parallel trainer's
+    # train steps run through (made at the first: parallel.wrap); ``model``
+    # is what is saved and restored
+    ddp: torch.nn.Module | None = None
 
 
 
@@ -89,8 +94,23 @@ class MattingTrainer:
     ``layers`` cuts FBA's encoder depth (widths stay the published ones;
     the other backbones have no depth knob).
 
-    Every step takes an optional ``radius`` ``[B]``, the per-sample trimap
-    dilation; without one it is drawn from ``state.generator``.
+    A trainer made in a process group (``parallel.init_from_env``, of any
+    size) trains data-parallel over it, each rank on its own slice of the
+    global batch; one made without a group trains in one process. A
+    data-parallel train step is then the one-process step on the
+    global batch (the JAX package's under GSPMD): DDP averages the
+    gradients, BatchNorm reduces over every rank
+    (``models/layers.py::BatchNorm``), the losses take their normalizing
+    counts over every rank (``global_batch``), the trimap radii and
+    IndexNet's dropout masks are drawn for the global batch from
+    generators seeded alike on every rank and each rank keeps its rows,
+    and the metrics returned are the global batch's. The first train step
+    wraps the model (``state.ddp``), after whatever the caller loaded into
+    it; a frozen backbone's parameters stop requiring a gradient there.
+
+    Every step takes an optional ``radius``, the per-sample trimap
+    dilation of the global batch (``[B * ranks]``);
+    without one it is drawn from ``state.generator``.
 
     ``init_state`` leaves the model in training mode (a frozen backbone in
     eval, ``VMN.train``) and the other steps in eval mode; ``train_step``
@@ -116,6 +136,9 @@ class MattingTrainer:
                              else LOSS_WEIGHTS_SINGLE)
         self._forward = (FM.forward_vmd if driver == "vmd"
                          else FM.forward_single)
+        # made in a process group: data-parallel over it
+        self._ddp = parallel.is_distributed()
+        self._ranks = parallel.world()
 
     def init_state(self, generator: torch.Generator | None = None
                    ) -> TrainState:
@@ -145,9 +168,36 @@ class MattingTrainer:
                           dropout_generator=drop_gen)
 
     def _radius(self, state: TrainState, batch: dict, radius):
-        if radius is None and self.cfg.dilate_radius is None:
-            radius = FM.draw_radius(batch["a"].shape[0], state.generator)
+        """The rank's rows of the global batch's radii (given, or drawn)."""
+        if self.cfg.dilate_radius is not None:
+            return radius
+        if radius is None:
+            radius = FM.draw_radius(batch["a"].shape[0] * self._ranks,
+                                    state.generator)
+        if self._ranks > 1:
+            radius = radius[parallel.shard_slice(len(radius))]
         return radius
+
+    def _net(self, state: TrainState) -> torch.nn.Module:
+        """What a train step runs: the model, or in a process group its DDP
+        wrapper, made at the first step."""
+        if not self._ddp:
+            return state.model
+        if state.ddp is None:
+            mask = trainable_mask(state.model, self.cfg.freeze_backbone)
+            for n, p in state.model.named_parameters():
+                p.requires_grad_(mask[n])
+            state.ddp = parallel.wrap(state.model)
+        return state.ddp
+
+    def _global(self, values: dict) -> dict:
+        """The ranks' mean of each 0-d tensor (every rank's share of a
+        ``global_batch`` loss averages to the global batch's value)."""
+        if self._ranks == 1:
+            return values
+        mean = parallel.all_reduce_sum(torch.stack(list(values.values()))
+                                       ) / self._ranks
+        return dict(zip(values, mean.unbind()))
 
     def train_step(self, state: TrainState, batch: dict, radius=None):
         """One optimizer step on ``batch`` (a, fg, bg ``[B, S, H, W, .]``,
@@ -157,21 +207,24 @@ class MattingTrainer:
 
         IndexNet's ASPP normalizes a 1x1-pooled branch with its batch
         statistics, so its encoder must see more than one frame: a
-        single-frame ``index`` step at B = 1 raises ``ValueError``."""
-        model, opt = state.model, state.optimizer
-        frames = batch["a"].shape[0] * (batch["a"].shape[1]
-                                        if self.cfg.is_vmn else 1)
+        single-frame ``index`` step at B = 1 raises ``ValueError`` (the
+        frames of every rank count)."""
+        opt = state.optimizer
+        frames = batch["a"].shape[0] * self._ranks * (
+            batch["a"].shape[1] if self.cfg.is_vmn else 1)
         if self.cfg.method == "index" and frames < 2:
             raise ValueError(
                 "IndexNet's ASPP pools to 1x1 before a BatchNorm, whose "
                 "training statistics need more than one frame: train "
                 f"{self.cfg.model!r} at a batch of at least 2 (got B = "
-                f"{batch['a'].shape[0]})")
-        if not model.training:
-            model.train()
+                f"{batch['a'].shape[0]} on {self._ranks} rank(s))")
+        net = self._net(state)
+        if not state.model.training:
+            net.train()
         radius = self._radius(state, batch, radius)
         opt.zero_grad(set_to_none=True)
-        losses, _ = self._forward(model, batch, self.cfg, radius)
+        losses, _ = self._forward(net, batch, self.cfg, radius,
+                                  global_batch=self._ranks > 1)
         total = sum(self.loss_weights[k] * v for k, v in losses.items())
         total.backward()
         lr = self.lr_schedule(state.step)
@@ -179,21 +232,23 @@ class MattingTrainer:
             group["lr"] = lr
         opt.step()
         state.step += 1
-        metrics = {"loss": total.detach(),
-                   **{k: v.detach() for k, v in losses.items()}, "lr": lr}
-        return state, metrics
+        metrics = self._global({"loss": total.detach(),
+                                **{k: v.detach() for k, v in losses.items()}})
+        return state, {**metrics, "lr": lr}
 
     @torch.no_grad()
     def _eval_forward(self, state: TrainState, batch: dict, radius):
         state.model.eval()
         return self._forward(state.model, batch, self.cfg,
-                             self._radius(state, batch, radius))
+                             self._radius(state, batch, radius),
+                             global_batch=self._ranks > 1)
 
     def eval_step(self, state: TrainState, batch: dict, radius=None):
-        """Losses without an update: ({loss, terms}, alphas)."""
+        """Losses without an update: ({loss, terms} of the global batch,
+        the rank's alphas)."""
         losses, aux = self._eval_forward(state, batch, radius)
         total = sum(self.loss_weights[k] * v for k, v in losses.items())
-        return {"loss": total, **losses}, aux["alphas"]
+        return self._global({"loss": total, **losses}), aux["alphas"]
 
     def vis_step(self, state: TrainState, batch: dict, radius=None) -> dict:
         """The tensors of the periodic image dumps (reference write_image,
@@ -209,7 +264,8 @@ class MattingTrainer:
         """Validation L_dt on PNG-quantized alphas (the reference's
         /dev/shm PNG round trip, train_ddp.py:102-169): the center frame's
         alpha differences to its neighbours against the ground truth's.
-        Returns (value, (center alpha, trimap visual, center gt))."""
+        Returns (value, of the global batch, (the rank's center alpha,
+        trimap visual, center gt))."""
         _, aux = self._eval_forward(state, batch, radius)
         alphas = torch.round(aux["alphas"] * 255.0) / 255.0
         gts = aux["pre"]["scaled_gts"]
@@ -217,7 +273,9 @@ class MattingTrainer:
         s = alphas.shape[1]
         c = s // 2
         terms = [l1_mask(alphas[:, c] - alphas[:, c + d],
-                         gts[:, c] - gts[:, c + d], tm[:, c])
+                         gts[:, c] - gts[:, c + d], tm[:, c],
+                         global_batch=self._ranks > 1)
                  for d in (-1, 1) if 0 <= c + d < s]
         tris_vis = torch.where(tm[:, c] > 0.5, 128.0 / 255.0, gts[:, c])
-        return sum(terms) / len(terms), (alphas[:, c], tris_vis, gts[:, c])
+        value = self._global({"L_dt": sum(terms) / len(terms)})["L_dt"]
+        return value, (alphas[:, c], tris_vis, gts[:, c])

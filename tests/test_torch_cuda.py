@@ -413,3 +413,70 @@ def test_train_step_on_card_matches_cpu(dev, rng, name):
     floor = module_grad_errors(g_jit, g_cpu)[0][0]
     worst = module_grad_errors(g_gpu, g_cpu)[0]
     assert worst[0] <= max(1e-3, 2 * floor), (worst, floor)
+
+
+@pytest.mark.parametrize("name", ["vmn_fba", "vmn_gca"])
+def test_nccl_one_rank_step_matches_the_plain_step(dev, rng, name,
+                                                   monkeypatch, tmp_path):
+    """A DDP train step in a process group of one rank over NCCL (a
+    trainer made in the group) against the plain step on the card (a
+    trainer made before the group started), from the same
+    weights, batch and radius (B = 1, S = 3, 64x64, window 3, FBA at depth
+    (1, 1, 1, 1)), deterministic algorithms where torch has them: losses
+    within rtol 1e-6, each module's gradient within relative L2 1e-5,
+    every running statistic and u, v within 1e-6; the logits kernel
+    launched once in each."""
+    import torch.distributed as dist
+
+    from chip_smoke import module_grad_errors
+    from tcvom_tpu_torch import parallel
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+
+    for k, v in (("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = TaskConfig(model=name, agg_window=3)
+        data = {"a": np.clip(rng.rand(1, 3, 64, 64, 1) * 600 - 200, 0, 255),
+                "fg": rng.rand(1, 3, 64, 64, 3) * 255,
+                "bg": rng.rand(1, 3, 64, 64, 3) * 255}
+        runs, weights = [], None
+        for ddp in (False, True):
+            if ddp:
+                assert parallel.init_from_env(
+                    "cuda", init_method=f"file://{tmp_path}/pg"
+                ) == torch.device("cuda", 0)
+            trainer = MattingTrainer(cfg, "vmd", layers=(1, 1, 1, 1),
+                                     device=dev)
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            if weights is None:
+                if name == "vmn_gca":
+                    converge_spectral_norms(state.model)
+                weights = {k: v.clone() for k, v in
+                           state.model.state_dict().items()}
+            state.model.load_state_dict(weights)
+            cuda_build.LAUNCHES.clear()
+            _, metrics = trainer.train_step(
+                state, {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+                        for k, v in data.items()}, radius=torch.tensor([4]))
+            runs.append(({k: float(v) for k, v in metrics.items()},
+                         {n: p.grad.cpu() for n, p in
+                          state.model.named_parameters()},
+                         {n: b.cpu() for n, b in
+                          state.model.named_buffers()},
+                         dict(cuda_build.LAUNCHES), state.ddp))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (m_plain, g_plain, b_plain, n_plain, _), (m_ddp, g_ddp, b_ddp, n_ddp,
+                                              wrapper) = runs
+    assert wrapper is not None and n_plain == n_ddp
+    assert n_ddp["fam_window_logits"] == 1
+    for k, v in m_plain.items():
+        np.testing.assert_allclose(m_ddp[k], v, rtol=1e-6, atol=1e-9,
+                                   err_msg=k)
+    for k, v in b_plain.items():
+        torch.testing.assert_close(b_ddp[k], v, atol=1e-6, rtol=1e-6)
+    worst = module_grad_errors(g_ddp, g_plain)[0]
+    assert worst[0] <= 1e-5, worst
