@@ -28,7 +28,9 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    per frame, the PNG codec); pred_vmn on a fake VideoMatting108 clip of 4
    frames (f32, 1088x1920, B = 1, S = 3, medium trimaps; launches, finite
    losses, the PNGs written, the sweep's phases); calc_metric on its
-   output on the card and on the CPU (every number within rtol 1e-5);
+   output on the card and on the CPU (every number within rtol 1e-5), and
+   on the card with --vis (one captioned image a frame, metric.json
+   unchanged);
 7. train_kernels: both FAM entries against the plain version at the
    training path's and pred_vmn's shapes (f32 to 1e-5, bf16 to 2e-2), the
    autograd Function's dq, dk against the plain version's autograd, and
@@ -60,7 +62,14 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
 11. pred_single --model dim and --model gca on pred_vmn's clip (f32;
    finite mSAD and MSE, the PNGs, seconds per sample, no kernel launched)
    and pred_vmn --model index and --model gca on it (f32; one
-   fam_window_logits launch per sample, finite losses, the PNGs);
+   fam_window_logits launch per sample, finite losses, the PNGs); then
+   pred_single --model fba --dataset adobe on two stills of
+   Composition-1k's size (pred_single_adobe_phase): at the tool's
+   defaults, the 800x800 resize grid, with --vis, and at --val_mode
+   origin, the 2112x2112 grid (one edt_row launch a sample, finite mSAD
+   and MSE, the PNGs at the JAX tool's crops, the captioned images), with
+   kernel A bit-exact at each run's captured row-pass input, [4800, 800]
+   and [12672, 2112], and timed there;
 12. the logits kernel (C/D) at the other backbones' training and
    validation batches ([24, 64, 64, 256], [24, 64, 64, 32], [36, 64, 64,
    128], [12, 68, 120, 32], [12, 68, 120, 128]) against the plain version,
@@ -91,6 +100,13 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    TF32); the DDP step's ms beside the plain step's, each rank's peak
    memory.
 
+The run adopts the orphans of every process it starts (a subreaper on
+Linux) and, when it ends, passed or failed, ends what is still running
+and reaps it (stop_children): the spawned DataLoader's resource tracker,
+which otherwise outlives this process by a second or more, and a tool's
+tracker orphaned when the tool exits; the "stop" line lists what was
+still running then and what had to be killed.
+
 The line before the last lists every kernel row on every path that runs
 it (name, route, source, the TPU kernel it replaces, the path, launches
 on that path, error, ms, plain ms, bound); the last line is
@@ -103,6 +119,7 @@ the versions of OpenCV and PyYAML (None where one does not import).
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import copy
 import itertools
@@ -171,6 +188,77 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans() -> bool:
+    """Makes this process the reaper of its descendants' orphans (Linux
+    prctl), so that stop_children finds every process the run started,
+    one whose parent has exited included. Returns whether it took."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL(None).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0,
+                                       0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def live_children() -> dict[int, str]:
+    """This process's children that have not exited: pid -> command."""
+    me, out = str(os.getpid()), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{d}/stat").read_text()
+            cmd = Path(f"/proc/{d}/cmdline").read_bytes()
+        except OSError:
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if ppid == me and state != "Z":
+            out[int(d)] = cmd.replace(b"\0", b" ").decode(errors="replace")
+    return out
+
+
+def stop_children(grace_s: float = 30.0) -> dict:
+    """Ends what the run left running and reaps it: multiprocessing's
+    children (loader workers), its resource tracker (which a spawned
+    DataLoader starts, and which ends only once every holder of its pipe
+    has exited), then waits up to ``grace_s`` for the other children
+    (adopted orphans) and kills those still alive. Returns the commands
+    still running when it was called, and those it killed."""
+    import gc
+    import multiprocessing
+    import signal
+    from multiprocessing import resource_tracker
+
+    running = sorted(live_children().values())
+    gc.collect()
+    for p in multiprocessing.active_children():
+        p.terminate()
+        p.join(10)
+    # the tracker's own stop (private): closes its pipe and waits for it
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    deadline = time.monotonic() + grace_s
+    while time.monotonic() < deadline:
+        try:
+            if not os.waitpid(-1, os.WNOHANG)[0]:
+                time.sleep(0.05)
+        except ChildProcessError:                   # no children at all
+            return {"running": running, "killed": []}
+    killed = live_children()
+    for pid in killed:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    with contextlib.suppress(ChildProcessError):
+        while True:
+            os.waitpid(-1, 0)
+    return {"running": running, "killed": sorted(killed.values())}
+
+
 def time_ms(fn, iters: int) -> float:
     """CUDA-event time per call over ``iters`` warm calls."""
     fn()
@@ -185,26 +273,37 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+DEVICE_MS_TRIES = 3
+
+
 def device_ms(fn, iters: int, kernel: str) -> float:
     """Device time per call of the kernels whose name holds ``kernel``,
     by torch.profiler, over ``iters`` warm calls: for a kernel shorter
     than its launch from Python, where CUDA events between launches time
-    the host."""
+    the host. A session that records none of the kernel's device time is
+    profiled again (the profiler once missed it on an H100 whose every
+    earlier run had it), up to ``DEVICE_MS_TRIES`` sessions."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(1, DEVICE_MS_TRIES + 1):
+        fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.key)
-    if not us:
-        fail(f"the profiler saw no device time of {kernel}")
-    return us / iters / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in events if kernel in e.key)
+        if us:
+            return us / iters / 1e3
+        print(f"chip_smoke: profiler session {attempt} saw no device time "
+              f"of {kernel} ({len(events)} device events: "
+              f"{[e.key[:60] for e in events[:4]]})", file=sys.stderr,
+              flush=True)
+    fail(f"the profiler saw no device time of {kernel} in "
+         f"{DEVICE_MS_TRIES} sessions")
 
 
 def host_ms(fn, iters: int) -> float:
@@ -729,16 +828,26 @@ def pred_vmn_phase(model, tmp, cuda_build, profile_path=None):
 
 def calc_metric_phase(root, save):
     """tools/calc_metric.py on pred_vmn's output, on the card and on the
-    CPU: every number of metric.json within rtol 1e-5."""
+    CPU: every number of metric.json within rtol 1e-5; then on the card
+    with --vis: one captioned error image a frame, (1080 + 100) x 3840,
+    and metric.json as without the flag."""
     from tcvom_tpu_torch.tools import calc_metric
+    from tcvom_tpu_torch.utils import imageio
 
     res, secs = {}, {}
-    for dev in ("cuda", "cpu"):
+    for dev, vis in (("cuda", []), ("cpu", []), ("cuda_vis", ["--vis"])):
         t0 = time.perf_counter()
         res[dev] = calc_metric.main(["--pred", str(save), "--data", str(root),
-                                     "--device", dev, "--output",
-                                     str(save / f"metric_{dev}.json")])
+                                     "--device", dev.split("_")[0],
+                                     "--output",
+                                     str(save / f"metric_{dev}.json")] + vis)
         secs[dev] = time.perf_counter() - t0
+    vis_shapes = [imageio.imread(str(p)).shape
+                  for p in sorted((save / "vis" / "clip_b").iterdir())]
+    if res.pop("cuda_vis") != res["cuda"]:
+        fail("calc_metric --vis changed metric.json")
+    if vis_shapes != [(FRAME_HW[0] + 100, 2 * FRAME_HW[1], 3)] * 4:
+        fail(f"calc_metric --vis wrote {vis_shapes}")
     worst = 0.0
 
     def walk(a, b):
@@ -755,7 +864,7 @@ def calc_metric_phase(root, save):
     pairs = len(res["cuda"]["all"]["clip_b"]["all"])
     emit(phase="calc_metric", pairs=pairs, avg=res["cuda"]["avg"],
          s_per_pair={d: t / pairs for d, t in secs.items()},
-         max_rel_diff_cuda_cpu=worst)
+         max_rel_diff_cuda_cpu=worst, vis=vis_shapes)
     if pairs != 4 or worst > 1e-5:
         fail(f"calc_metric: {pairs} pairs, card vs CPU rel diff {worst}")
     if not all(np.isfinite(v) for v in res["cuda"]["avg"].values()):
@@ -1784,6 +1893,85 @@ def pred_single_phase(name: str, tmp, root, cuda_build):
         fail(f"pred_single {name} wrote {written}")
 
 
+ADOBE_HW = (1080, 1440)          # a Composition-1k still's size
+
+
+def pred_single_adobe_phase(tmp, cuda_build, edt_kernel) -> dict:
+    """tools/pred_single.py --model fba --dataset adobe on two stills of
+    Composition-1k's size (backgrounds twice as large), FBA at the
+    published depth with random weights through a .pth, f32, B = 1,
+    medium trimaps, the samples read in this process: at the tool's
+    defaults (--val_mode resize --min_shape 800, the 800x800 grid) with
+    --vis, and at --val_mode origin (the 2112x2112 grid). Each run
+    launches kernel A once a sample (the trimap encoding of the three
+    synthesized frames: a [3*2*grid, grid] row pass), writes the PNGs at
+    the JAX tool's crops (the still's size cut to the grid) and, with
+    --vis, one captioned image a sample. The row pass's input of each run
+    is captured from the counted run itself and kernel A held bit-exact
+    against its plain version there, and timed. Returns the kernel rows'
+    numbers and launches by path."""
+    from tcvom_tpu_torch.tools import pred_single
+    from tcvom_tpu_torch.tools.make_fake_dataset import make_adobe
+    from tcvom_tpu_torch.utils import imageio
+
+    t_phase = time.perf_counter()
+    root, n = tmp / "adobe_eval", 2
+    make_adobe(str(root), n=n, hw=ADOBE_HW, seed=3)
+    ogs = [(ADOBE_HW[0] + 8 * i, ADOBE_HW[1] + 4 * i) for i in range(n)]
+    ckpt = random_checkpoint("fba", tmp)
+    setup_s = time.perf_counter() - t_phase
+    kernel_row_pass = edt_kernel.edt_row_pass
+    res = {}
+    for mode, grid, vis in (("resize", 800, True), ("origin", 2112, False)):
+        save, seen = tmp / f"pred_single_adobe_{mode}", []
+
+        def record(g2, t):
+            if not seen:
+                seen.append((g2.clone(), t))
+            return kernel_row_pass(g2, t)
+
+        cuda_build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with mock.patch.object(edt_kernel, "edt_row_pass", record):
+            out = pred_single.main(
+                ["--model", "fba", "--dataset", "adobe", "--data", str(root),
+                 "--load", str(ckpt), "--trimap", "medium", "--save",
+                 str(save), "--val_mode", mode, "--batch", "1",
+                 "--n_threads", "0"] + (["--vis"] if vis else []))
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(cuda_build.LAUNCHES)
+        crops = [(min(h, grid), min(w, grid)) for h, w in ogs]
+        shapes = {f"{i:05d}_{k}": imageio.imread(
+            str(save / f"{i:05d}_{k}.png"), imageio.IMREAD_UNCHANGED).shape
+            for i in range(n) for k in ("pred", "tri")}
+        vis_shapes = ([imageio.imread(str(save / "vis" / f"{i:05d}.png")
+                                      ).shape for i in range(n)]
+                      if vis else [])
+        path = f"pred_single_adobe_{mode}"
+        emit(phase=path, samples=n, grid=[grid, grid], result=out,
+             seconds=secs, s_per_sample=secs / n, launches=counts,
+             written=shapes, vis=vis_shapes,
+             row_pass_input=list(seen[0][0].shape) if seen else None)
+        if counts != {"edt_row": n}:
+            fail(f"{path} launch counts {counts}, want {n} edt_row")
+        if not all(np.isfinite(v) for v in out.values()):
+            fail(f"{path} results {out}")
+        if shapes != {f"{i:05d}_{k}": crops[i] for i in range(n)
+                      for k in ("pred", "tri")}:
+            fail(f"{path} wrote {shapes}, want the crops {crops}")
+        if vis and vis_shapes != [(h + 100, 2 * w, 3) for h, w in crops]:
+            fail(f"{path} vis images {vis_shapes}")
+        if list(seen[0][0].shape) != [3 * 2 * grid, grid]:
+            fail(f"{path} row pass input {list(seen[0][0].shape)}")
+        res[path] = dict(hold_edt(edt_kernel, *seen[0], timed=True,
+                                  path=path), launches=counts["edt_row"])
+        del seen
+    emit(phase="pred_single_adobe", setup_s=setup_s,
+         seconds=time.perf_counter() - t_phase)
+    return res
+
+
 def pred_vmn_backbone_phase(name: str, tmp, root, cuda_build):
     """tools/pred_vmn.py with ``vmn_<name>`` (IndexNet or GCA, random
     weights through a .pth) on the same clip, the samples read in this
@@ -1855,6 +2043,8 @@ def main():
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     t_start = time.perf_counter()
+    adopted = adopt_orphans()
+    atexit.register(stop_children)
     # cuBLAS's deterministic mode (the train phases' held steps) needs its
     # workspace fixed before cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2000,6 +2190,8 @@ def main():
     vmn_backbone_counts = {}
     for name in ("dim", "gca"):
         pred_single_phase(name, tmp, root, cuda_build)
+    adobe_res = pred_single_adobe_phase(tmp, cuda_build, edt_kernel)
+    torch.cuda.empty_cache()
     for name in ("index", "gca"):
         torch.cuda.reset_peak_memory_stats()
         vmn_backbone_counts[name] = pred_vmn_backbone_phase(name, tmp, root,
@@ -2124,7 +2316,9 @@ def main():
         dict(logits_c, path="pred_vmn_ddp", replaces=val_d,
              launches=ddp_counts["pred_vmn_ddp"]["fam_window_logits"],
              **logits_res[(2, 136, 240, 256)])]
+    kernels += [dict(edt, path=path, **r) for path, r in adobe_res.items()]
     emit(phase="wall", seconds=time.perf_counter() - t_start)
+    emit(phase="stop", subreaper=adopted, **stop_children())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -3,19 +3,18 @@ with mirrored edges, paired FG(RGBA)/BG frames through frame_corr.json;
 in training a random temporal flip, a scale-crop-resize re-rolled until
 unknown pixels exist, and pixel and JPEG augmentation, drawn from
 ``(seed, epoch, idx)``; in validation the frames padded to the network's
-shape (the reference's precomputed val path, which also reads the
-quantized flow PNGs, /100, NaN-invalid) or resized to it. Items are
-float32 ``[S, H, W, C]`` in BGR 0-255, as the JAX package yields them;
+shape (the reference's precomputed val path) or resized to it. Unless
+``no_flow``, the quantized flow PNGs (/100, NaN-invalid) of the centre
+frames come with each item, cropped and resized with the frames
+(:func:`flow_crop_and_resize`) or padded with NaN. Items are float32
+``[S, H, W, C]`` in BGR 0-255, as the JAX package yields them;
 ``data/loader.py::make_loader`` batches them.
-
-Flow is read on the pad path only: ``flow_crop_and_resize``, which the
-training items and the resize path would need, is not ported (ROADMAP.md
-Queue 1 item 11); the trainer reads no flow.
 """
 from __future__ import annotations
 
 import json
 import os
+from functools import partial
 from typing import Sequence
 
 import numpy as np
@@ -61,11 +60,67 @@ def read_flow_png(path: str) -> np.ndarray:
     return flow / FLOW_QUANTIZATION_SCALE
 
 
+def flow_crop_and_resize(flow: np.ndarray, ph: int, pw: int, nsize,
+                         out_shape) -> np.ndarray:
+    """Flow ``[H, W, 2]`` cropped to ``nsize`` at (ph, pw) (the whole
+    frame when ``nsize`` is None) and resampled to ``out_shape``, NaN where
+    invalid (reference VMD.py:68-126; tcvom_tpu/data/vmd.py:63-117): a
+    pixel whose flow turns by more than 45 degrees or changes magnitude by
+    50 or more against its lower or right neighbour is invalid, unless
+    both vectors are short (norms summing to under 2) or one is zero; the
+    flow is resized align-corners bilinear (NaNs propagate), masked by the
+    validity at the floor of each source coordinate, rescaled to the
+    output grid, and NaN where it points out of the frame."""
+    if nsize is not None:
+        flow = flow[ph:ph + nsize[0], pw:pw + nsize[1]]
+    else:
+        nsize = flow.shape[:2]
+    oh, ow = out_shape
+
+    def gradient_check(fa, fb):
+        dot = (fa * fb).sum(-1)
+        na = np.sqrt((fa ** 2).sum(-1))
+        nb = np.sqrt((fb ** 2).sum(-1))
+        nab = na * nb
+        with np.errstate(invalid="ignore", divide="ignore"):
+            cosv = np.abs(dot / nab).clip(0, 1.0 - 1e-6)
+        angle_valid = np.arccos(cosv) <= np.pi / 4
+        angle_valid[nab == 0] = True
+        angle_valid[(na + nb) < 2] = True
+        mag_valid = np.abs(na - nb) < 50
+        return (angle_valid & mag_valid).astype(np.int32)
+
+    gradh = np.pad(gradient_check(flow[:-1], flow[1:]), ((0, 1), (0, 0)),
+                   constant_values=1)
+    gradw = np.pad(gradient_check(flow[:, :-1], flow[:, 1:]),
+                   ((0, 0), (0, 1)), constant_values=1)
+    valid = gradh * gradw
+
+    interp = resize_bilinear_ac(flow, (oh, ow), round_floor_half=False)
+    ys = np.arange(oh, dtype=np.float32) * ((nsize[0] - 1) / float(oh - 1))
+    xs = np.arange(ow, dtype=np.float32) * ((nsize[1] - 1) / float(ow - 1))
+    cy = np.clip(np.floor(ys).astype(np.int64), 0, nsize[0] - 1)
+    cx = np.clip(np.floor(xs).astype(np.int64), 0, nsize[1] - 1)
+    interp = np.where(valid[cy][:, cx].astype(bool)[..., None], interp,
+                      np.nan)
+    interp[..., 0] /= nsize[1] / float(ow)
+    interp[..., 1] /= nsize[0] / float(oh)
+
+    gy, gx = np.meshgrid(np.arange(oh, dtype=np.float32),
+                         np.arange(ow, dtype=np.float32), indexing="ij")
+    fx = gx + interp[..., 0]
+    fy = gy + interp[..., 1]
+    interp[(fx < 0) | (fy < 0) | (fx > ow - 1) | (fy > oh - 1)] = np.nan
+    return interp
+
+
 class VideoMattingDataset(torch.utils.data.Dataset):
     """``mode='train'`` or ``'val'``; items ``dict(a, fg, bg[, wb, wf],
     idx)`` of ``image_shape``. A key is ``(epoch, idx)``
     (``data/loader.py``). In val the frames come from ``precomputed_val``
-    padded, or from ``data_root`` resized when it is None."""
+    padded, or from ``data_root`` resized when it is None. ``wb``, ``wf``:
+    the backward and forward flow of the frames that have one (the centre
+    frames), NaN for the others."""
 
     def __init__(self, data_root: str, image_shape, mode: str,
                  use_subset: bool = False, no_flow: bool = False,
@@ -73,11 +128,6 @@ class VideoMattingDataset(torch.utils.data.Dataset):
                  plus1: bool = False, seed: int = 0):
         if mode not in ("train", "val"):
             raise ValueError(mode)
-        if not no_flow and (mode == "train" or precomputed_val is None):
-            raise NotImplementedError(
-                "flow for training items and the val resize path needs "
-                "flow_crop_and_resize, not ported: ROADMAP.md Queue 1 item "
-                "11; pass no_flow=True")
         self.data_root = data_root
         self.mode = mode
         self.no_flow = no_flow
@@ -116,7 +166,8 @@ class VideoMattingDataset(torch.utils.data.Dataset):
         """Random scale crop of the whole clip, re-rolled until every
         frame keeps unknown pixels (reference shape_aug, VMD.py:128-166;
         tcvom_tpu/data/vmd.py:172-199): the scales that fit the frame,
-        the last crop after 1000 tries."""
+        the last crop after 1000 tries. Returns the crops and the crop
+        ``(ph, pw, (nh, nw))``, by which the flow is cropped too."""
         h, w = alphas[0].shape[:2]
         size = self.image_shape
         if size[0] != size[1]:
@@ -137,7 +188,7 @@ class VideoMattingDataset(torch.utils.data.Dataset):
             pa = crop(alphas)
             if all(np.sum((x > 0) & (x < 255)) >= 1 for x in pa):
                 break
-        return crop(fgs), crop(bgs), pa
+        return crop(fgs), crop(bgs), pa, (ph, pw, (nh, nw))
 
     def __getitem__(self, key):
         epoch, idx = key
@@ -150,7 +201,10 @@ class VideoMattingDataset(torch.utils.data.Dataset):
         fgs, bgs, alphas = (list(x) for x in zip(
             *[self._read_frame(n, root) for n in sample]))
         if self.mode == "train":
-            fgs, bgs, alphas = self._shape_aug(fgs, bgs, alphas, rng)
+            fgs, bgs, alphas, (ph, pw, nsize) = self._shape_aug(
+                fgs, bgs, alphas, rng)
+            fit_flow = partial(flow_crop_and_resize, ph=ph, pw=pw,
+                               nsize=nsize, out_shape=self.image_shape)
             pixel_aug = PixelAug(rng)
             p_fg, p_bg = pixel_aug.sample(), pixel_aug.sample()
             jpeg = JpegAug(rng).sample()
@@ -162,28 +216,31 @@ class VideoMattingDataset(torch.utils.data.Dataset):
             fgs = [self._pad(f, IMG_PADDING_VALUE) for f in fgs]
             bgs = [self._pad(b, IMG_PADDING_VALUE) for b in bgs]
             alphas = [self._pad(a, 0.0) for a in alphas]
+            fit_flow = partial(self._pad, value=np.nan)
         else:
             fgs, bgs, alphas = ([resize_bilinear_ac(x, self.image_shape)
                                  for x in xs] for xs in (fgs, bgs, alphas))
+            fit_flow = partial(flow_crop_and_resize, ph=0, pw=0, nsize=None,
+                               out_shape=self.image_shape)
         out = {"a": np.stack(alphas).astype(np.float32),
                "fg": np.stack(fgs).astype(np.float32),
                "bg": np.stack(bgs).astype(np.float32),
                "idx": np.int32(idx)}
         if not self.no_flow:
-            out["wb"], out["wf"] = self._flows(sample)
+            out["wb"], out["wf"] = self._flows(sample, fit_flow)
         return out
 
-    def _flows(self, sample):
-        """wb and wf ``[S, H, W, 2]`` of the pad path: the center frames'
-        backward and forward flow, NaN elsewhere."""
+    def _flows(self, sample, fit):
+        """wb and wf ``[S, H, W, 2]``: the centre frames' backward and
+        forward flow, each read and brought to ``image_shape`` by ``fit``
+        as the frames were, NaN elsewhere."""
         s = len(sample)
         dn = os.path.dirname(sample[0])
         fns = [os.path.splitext(os.path.basename(n))[0] for n in sample]
 
         def flow(a, b):
-            return self._pad(read_flow_png(os.path.join(
-                self.data_root, FLOW_FOLDER, dn, f"flow_{a}_{b}.png")),
-                np.nan)
+            return fit(read_flow_png(os.path.join(
+                self.data_root, FLOW_FOLDER, dn, f"flow_{a}_{b}.png")))
 
         nanf = np.full(self.image_shape + [2], np.nan, np.float32)
         wb, wf = [nanf] * s, [nanf] * s

@@ -3,6 +3,8 @@ tcvom_tpu/ops/losses.py), with the reference's normalization constants
 (utils/loss_func.py):
 
 - ``l1_mask``        masked L1 with the clamped ``safe`` denominator
+- ``l1_mask_hard_mining`` masked L1 over the pixels above each sample's
+  masked median
 - ``l1_grad``        L1 between gradient magnitudes
 - ``exclusion_loss`` 3-level F/B gradient exclusion
 - ``lap_loss``       5-level Laplacian pyramid L1 (OpenCV pyrDown/pyrUp)
@@ -62,6 +64,33 @@ def l1_mask(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor | None = None,
     if normalize:
         return res.mean()
     return res.sum() * n
+
+
+def l1_mask_hard_mining(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hard-example mining L1 (reference loss_func.py:25-38;
+    tcvom_tpu/ops/losses.py:43-67) on ``[B, H, W, C]``: per sample, the
+    residual summed over channels, its median over the mask (``mask >
+    0.5``), the element at ``floor(count * 0.5)`` of the residuals sorted
+    with the unmasked ones at +inf; the masked pixels strictly above it
+    form ``new_mask`` (``[B, H, W, 1]``, ``x``'s dtype), and the loss is
+    the residual summed over them divided by ``max(their count, 1)``.
+    Returns (loss, new_mask). A sample with an empty mask keeps none.
+
+    It takes no ``global_batch``: no tool or trainer calls it (the
+    reference keeps it for API parity), so no data-parallel step needs its
+    count summed over the ranks."""
+    res = (x - y).abs().sum(dim=-1, keepdim=True)
+    m = mask > 0.5
+    b = x.shape[0]
+    flat = res.reshape(b, -1)
+    mflat = m.reshape(b, -1)
+    srt = torch.where(mflat, flat, torch.inf).sort(dim=1).values
+    cnt = mflat.sum(dim=1)
+    idx = torch.clamp((cnt * 0.5).to(torch.int64), 0, flat.shape[1] - 1)
+    thresh = srt.gather(1, idx[:, None])
+    new_mask = (m & (flat > thresh).reshape(res.shape)).to(x.dtype)
+    return (res * new_mask).sum() / new_mask.sum().clamp_min(1.0), new_mask
 
 
 def l1_grad(pred: torch.Tensor, gt: torch.Tensor,

@@ -4,9 +4,12 @@ Discovers the fully predicted videos from frame_corr.json, computes
 SAD/MSE/SSDA per frame and dtSSD/MESSDdt against the next frame through the
 quantized flow PNGs, and writes the nested per-frame / per-video / global
 metric.json. PNGs are decoded on host threads; the metrics run on
-``--device`` (the card by default).
+``--device`` (the card by default). ``--vis`` also writes each frame's
+error overlay | gt with its trimap and its numbers under ``<pred>/vis/``
+(it needs OpenCV).
 
-    python -m tcvom_tpu_torch.tools.calc_metric --pred out/ --data VMD108/
+    python -m tcvom_tpu_torch.tools.calc_metric --pred out/ --data VMD108/ \
+        [--vis] [--device cpu]
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from tcvom_tpu_torch.data.augment import need_cv2
 from tcvom_tpu_torch.data.vmd import read_flow_png
 from tcvom_tpu_torch.ops.metrics import frame_metrics
 from tcvom_tpu_torch.utils.device import resolve_device
 from tcvom_tpu_torch.utils.imageio import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
                                            imread)
+from tcvom_tpu_torch.utils.visualize import write_error_vis
 
 METRIC_KEYS = ["mSAD", "MSE", "SSDA", "dtSSD", "MESSDdt_fix", "MESSDdt"]
 
@@ -116,15 +121,15 @@ def main(argv=None) -> dict:
     p.add_argument("--data", required=True)
     p.add_argument("--output", default=None)
     p.add_argument("--vis", action="store_true",
-                   help="error visualizations with a caption (not ported: "
-                        "they draw text with OpenCV)")
+                   help="write per-frame error visualizations (red error "
+                        "overlay | gt, trimap inset, SAD / MSE caption) "
+                        "under <pred>/vis (needs OpenCV)")
     p.add_argument("--n_threads", type=int, default=8)
     p.add_argument("--device", default="cuda",
                    help="torch device of the metrics (default: the card)")
     args = p.parse_args(argv)
     if args.vis:
-        raise NotImplementedError("--vis draws its captions with OpenCV: "
-                                  "ROADMAP.md Queue 1 item 9")
+        need_cv2("--vis")
     dev = resolve_device(args.device)
 
     videos, pairs = discover_frames(args.pred, args.data)
@@ -135,7 +140,11 @@ def main(argv=None) -> dict:
         for (cf, _), arrs in zip(pairs, loads):
             out = frame_metrics(*[torch.as_tensor(x, device=dev)
                                   for x in arrs])
-            results[cf] = {k: float(v) for k, v in out.items()}
+            m = results[cf] = {k: float(v) for k, v in out.items()}
+            if args.vis:
+                a, g, t = arrs[:3]
+                write_error_vis(os.path.join(args.pred, "vis"), cf, a, g, t,
+                                m["mSAD"], m["MSE"], int(m["pixel_count"]))
             print(cf)
 
     agg = aggregate(videos, results)

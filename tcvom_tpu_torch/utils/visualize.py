@@ -1,7 +1,11 @@
 """Training-image dumps (port of tcvom_tpu/utils/visualize.py, reference
 write_image, train_ddp.py:27-38): periodic grids of img / trimap / alpha /
-comp / gt / fg / bg, and the validation's pred / tri / gt triplets. PNGs
-go through the port's writer (``utils/imageio.py``)."""
+comp / gt / fg / bg, and the validation's pred / tri / gt triplets; and
+the evaluation tools' captioned images (``--vis``): ``pred_single``'s
+pred | gt (:func:`write_vis_image`) and ``calc_metric``'s error overlay |
+gt (:func:`write_error_vis`). PNGs go through the port's writer
+(``utils/imageio.py``); the captioned images need OpenCV (cv2), which
+draws their text."""
 from __future__ import annotations
 
 import os
@@ -9,6 +13,7 @@ import os
 import numpy as np
 import torch
 
+from tcvom_tpu_torch.data.augment import need_cv2
 from tcvom_tpu_torch.utils.imageio import imwrite
 
 
@@ -65,3 +70,48 @@ def write_training_images(outdir: str, aux: dict, step: int,
         save_image_grid(t.reshape((b * s,) + t.shape[2:]),
                         os.path.join(outdir, f"vis_{name}_{step}.png"),
                         nrow=s)
+
+
+def _write_captioned(vis_dir: str, name: str, left: np.ndarray, g8, t8,
+                     sad: float, mse: float, pcount: int) -> None:
+    """``left`` (BGR uint8) beside the gt ``g8`` in gray, the trimap
+    ``t8`` at a quarter of the size inset at the bottom centre, a 100-px
+    blue strip below with the green caption ``SAD= MSE= valid_pxs=``
+    (reference pred_single.py:194-208, calc_metric.py:103-126); written
+    to ``<vis_dir>/<name without extension>.png``."""
+    cv2 = need_cv2("--vis")
+    h, w = g8.shape
+    inset = cv2.resize(t8, (w // 4, h // 4), interpolation=cv2.INTER_NEAREST)
+    comp = np.concatenate([left, np.stack([g8] * 3, -1)], axis=1)
+    x0 = comp.shape[1] // 2 - inset.shape[1] // 2
+    comp[-inset.shape[0]:, x0:x0 + inset.shape[1]] = inset[..., None]
+    comp = cv2.copyMakeBorder(comp, 0, 100, 0, 0, cv2.BORDER_CONSTANT,
+                              value=(255, 0, 0))
+    caption = "SAD={:.6f} MSE={:.6f} valid_pxs={}".format(sad, mse, pcount)
+    comp = cv2.putText(comp, caption, (20, comp.shape[0] - 20),
+                       cv2.FONT_HERSHEY_SIMPLEX, 2, (0, 255, 0), 3)
+    fn = os.path.splitext(name)[0]
+    os.makedirs(os.path.join(vis_dir, os.path.dirname(fn)), exist_ok=True)
+    imwrite(os.path.join(vis_dir, fn + ".png"), comp)
+
+
+def write_vis_image(vis_dir: str, name: str, a8, g8, t8, sad: float,
+                    mse: float, pcount: int) -> None:
+    """``pred_single --vis`` (tools/pred_single.py:55-71): the predicted
+    matte beside the gt, uint8 ``[H, W]`` each, with the trimap ``t8``'s
+    inset and the sample's SAD, MSE and unknown-pixel count."""
+    _write_captioned(vis_dir, name, np.stack([a8] * 3, -1), g8, t8, sad,
+                     mse, pcount)
+
+
+def write_error_vis(vis_dir: str, name: str, a, g, t, sad: float, mse: float,
+                    pcount: int) -> None:
+    """``calc_metric --vis`` (tools/calc_metric.py:108-133): the predicted
+    matte ``a`` with its error ``|a - g|`` laid over it in red, beside the
+    gt ``g`` (both f32 in [0, 1]), with the trimap ``t`` (f32, 0..255)
+    inset and the frame's SAD, MSE and unknown-pixel count."""
+    left = np.stack([np.uint8(a * 255)] * 3, -1).astype(np.float32) / 255.0
+    diff = np.abs(a.astype(np.float32) - g)
+    left[..., 2] = diff + (1 - diff) * left[..., 2]
+    _write_captioned(vis_dir, name, np.uint8(left * 255), np.uint8(g * 255),
+                     np.uint8(t), sad, mse, pcount)

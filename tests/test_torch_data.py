@@ -1,11 +1,12 @@
 """The port's training data against the JAX package's, on the CPU: the
-augmentations, the epoch order, VideoMatting108 training items and
-resize-path validation items, the Adobe-DIM pretrain items, all for the
-same ``(seed, epoch, idx)`` on trees both packages' makers write, and an
-item read by a loader's worker process after the sampler's
-``set_epoch``."""
+augmentations, the epoch order, VideoMatting108 training items (with and
+without flow) and resize-path validation items, the Adobe-DIM pretrain
+items, all for the same ``(seed, epoch, idx)`` on trees both packages'
+makers write, and an item read by a loader's worker process after the
+sampler's ``set_epoch``."""
 import filecmp
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -20,6 +21,7 @@ from tcvom_tpu_torch.data import dim as TDim
 from tcvom_tpu_torch.data import loader as TLoader
 from tcvom_tpu_torch.data import vmd as TV
 from tcvom_tpu_torch.tools.make_fake_dataset import make, make_adobe
+from tcvom_tpu_torch.utils import imageio as IO
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (48, 48)
@@ -145,10 +147,50 @@ def test_val_resize_items_match_jax(vmd_root):
         _assert_items_equal(got[(0, i)], want[i])
 
 
-def test_flow_waits_for_the_roadmap_off_the_pad_path(vmd_root):
-    for kw in (dict(mode="train"), dict(mode="val")):
-        with pytest.raises(NotImplementedError, match="flow_crop_and_resize"):
-            TV.VideoMattingDataset(vmd_root, SHAPE, no_flow=False, **kw)
+def _random_flows(root: str, seed: int) -> None:
+    """Overwrite every flow PNG of ``root`` with random int16 flow: a
+    smooth field up to ~30 px (off the frame near its edges) with noise,
+    +-60 px jumps, perpendicular patches and a quarter of the pixels
+    invalid."""
+    rng = np.random.RandomState(seed)
+    for dirpath, _, files in sorted(os.walk(os.path.join(root, "flow_png"))):
+        for fn in sorted(files):
+            path = os.path.join(dirpath, fn)
+            h, w = IO.imread(path, IO.IMREAD_UNCHANGED).shape[:2]
+            yy, xx = np.mgrid[:h, :w]
+            flow = np.stack([(xx - w / 2) * 0.6, (yy - h / 2) * 0.5], -1)
+            flow = flow * rng.uniform(0.5, 1.5) + rng.normal(0, 0.4, (h, w, 2))
+            jumps = rng.rand(h, w) < 0.03
+            flow[jumps] += rng.choice([-60.0, 60.0], (jumps.sum(), 2))
+            y, x = rng.randint(0, h - 6), rng.randint(0, w - 6)
+            flow[y:y + 6, x:x + 6] = flow[y:y + 6, x:x + 6, ::-1] * (-1, 1)
+            out = np.empty((h, w, 3), np.uint16)
+            out[..., :2] = np.round(flow * 100).astype(np.int16).view(
+                np.uint16)
+            out[..., 2] = np.where(rng.rand(h, w) < 0.25, 0, 255)
+            IO.imwrite(path, out)
+
+
+def test_flow_waits_for_the_roadmap_off_the_pad_path(vmd_root, tmp_path):
+    """Training items with flow (``no_flow=False``: the crop of each flow
+    with its frames, flow_crop_and_resize) equal to the JAX package's, at
+    epochs 0 and 3, on a tree with random flow PNGs: every flow the
+    5-frame sample has, and NaN where it has none."""
+    root = str(tmp_path / "vmd")
+    shutil.copytree(vmd_root, root)
+    _random_flows(root, seed=6)
+    kw = dict(data_root=root, image_shape=SHAPE, mode="train",
+              no_flow=False, sample_length=5, seed=777)
+    want, got = JV.VideoMattingDataset(**kw), TV.VideoMattingDataset(**kw)
+    for epoch in (0, 3):
+        want.set_epoch(epoch)
+        for i in range(len(got)):
+            item = got[(epoch, i)]
+            assert item["wb"].shape == (5,) + SHAPE + (2,)
+            _assert_items_equal(item, want[i])
+            finite = np.isfinite(item["wf"][1, ..., 0])
+            assert 0.05 < finite.mean() < 0.95
+            assert np.isnan(item["wf"][4]).all()
 
 
 def test_worker_items_follow_the_sampler_epoch(vmd_root):

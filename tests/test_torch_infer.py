@@ -1,7 +1,8 @@
 """The inference pipelines against the JAX package's, on the CPU: the dilated
-quantized stream, ``forward_eval``, the evaluation steps, the wild-folder
-pipeline and checkpoint loading. Both packages load their weights from one
-``.pth`` file written by the port."""
+quantized stream, ``forward_eval``, the evaluation steps (on a clip and on
+an Adobe-DIM batch), the wild-folder pipeline and checkpoint loading. Both
+packages load their weights from one ``.pth`` file written by the port."""
+import functools
 import os
 
 import numpy as np
@@ -19,7 +20,8 @@ from tcvom_tpu.utils.checkpoint import load_weights as jax_load_weights
 from tcvom_tpu_torch.infer import predict as TP
 from tcvom_tpu_torch.models import full_model as TFM
 from tcvom_tpu_torch.models.registry import build_model
-from tcvom_tpu_torch.tools.make_fake_dataset import make_wild_folder
+from tcvom_tpu_torch.tools.make_fake_dataset import (make_adobe,
+                                                     make_wild_folder)
 from tcvom_tpu_torch.utils.checkpoint import load_weights, save_weights
 from tcvom_tpu_torch.utils.imageio import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
                                            imread)
@@ -173,22 +175,32 @@ def test_forward_eval_matches_jax(models, name):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-4)
 
 
-@pytest.mark.parametrize("name", ["vmn_fba", "fba"])
-def test_eval_step_matches_jax(models, name):
-    """make_vmd_eval_step for the VMN, make_single_eval_step for the
-    single-frame model, at the narrow trimap width."""
-    jmod, jvars, port, _ = models[name]
-    batch = _clip(4)
+@pytest.fixture(scope="module")
+def eval_steps(models):
+    """name -> (JAX step, port step) at the narrow trimap width:
+    make_vmd_eval_step for the VMN, make_single_eval_step for the
+    single-frame model. One jitted JAX step a model serves every test of
+    the module (one compile a shape)."""
     dil = TP.TRIMAP_DILATION["narrow"]
-    jmake, tmake = ((JP.make_vmd_eval_step, TP.make_vmd_eval_step)
-                    if name == "vmn_fba" else
-                    (JP.make_single_eval_step, TP.make_single_eval_step))
-    jl, ja, jt = jmake(jmod, JFM.TaskConfig(
-        model=name, agg_window=WINDOW, dilate_radius=dil))(
-        jvars, {k: jnp.asarray(v) for k, v in batch.items()},
-        jax.random.PRNGKey(1))
-    tl, ta, tt = tmake(port, TFM.TaskConfig(
-        model=name, agg_window=WINDOW, dilate_radius=dil))(batch)
+    out = {}
+    for name, jmake, tmake in (
+            ("vmn_fba", JP.make_vmd_eval_step, TP.make_vmd_eval_step),
+            ("fba", JP.make_single_eval_step, TP.make_single_eval_step)):
+        jmod, jvars, port, _ = models[name]
+        kw = dict(model=name, agg_window=WINDOW, dilate_radius=dil)
+        jstep = jmake(jmod, JFM.TaskConfig(**kw))
+        out[name] = (functools.partial(jstep, jvars),
+                     tmake(port, TFM.TaskConfig(**kw)))
+    return out
+
+
+def _hold_eval_step(steps, batch):
+    """The port's losses (rtol 1e-4), alpha (atol 5e-4) and trimap (equal)
+    against JAX's on ``batch``; returns the port's trimap."""
+    jstep, tstep = steps
+    jl, ja, jt = jstep({k: jnp.asarray(v) for k, v in batch.items()},
+                       jax.random.PRNGKey(1))
+    tl, ta, tt = tstep(batch)
     assert set(tl) == set(jl)
     for k in jl:
         np.testing.assert_allclose(tl[k].item(), float(jl[k]), rtol=1e-4,
@@ -196,6 +208,29 @@ def test_eval_step_matches_jax(models, name):
     assert ta.shape == tt.shape == (1, H, W, 1)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=5e-4)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    return tt
+
+
+@pytest.mark.parametrize("name", ["vmn_fba", "fba"])
+def test_eval_step_matches_jax(eval_steps, name):
+    """make_vmd_eval_step for the VMN, make_single_eval_step for the
+    single-frame model, at the narrow trimap width."""
+    _hold_eval_step(eval_steps[name], _clip(4))
+
+
+def test_eval_step_on_an_adobe_batch_matches_jax(eval_steps, tmp_path):
+    """make_single_eval_step on one DIMEvalDataset batch (FBA, the resize
+    grid of 64, the narrow trimap width), within
+    test_eval_step_matches_jax's tolerances."""
+    from tcvom_tpu_torch.data.dim import DIMEvalDataset
+
+    make_adobe(str(tmp_path), n=1, hw=(70, 50), seed=2)
+    item = DIMEvalDataset(data_root=str(tmp_path), val_mode="resize",
+                          min_shape=H, plus1=False)[(0, 0)]
+    batch = {k: item[k][None] for k in ("a", "fg", "bg")}
+    assert batch["a"].shape == (1, 3, H, W, 1)
+    tt = _hold_eval_step(eval_steps["fba"], batch)
+    assert 0 < ((tt > 0) & (tt < 1)).float().mean() < 1
 
 
 @pytest.mark.parametrize("name,dilation", [("vmn_fba", None), ("vmn_fba", 3),

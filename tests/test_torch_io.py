@@ -1,6 +1,8 @@
 """The port's PNG codec against OpenCV, and its VideoMatting108 readers
-against the JAX package's, on the CPU."""
+(the flow of both val paths included) against the JAX package's, on the
+CPU."""
 import os
+import shutil
 import struct
 import sys
 import zlib
@@ -242,6 +244,34 @@ def test_val_items_match_jax(vmd_root, no_flow, length):
     np.testing.assert_array_equal(batches[1]["a"][0], got[(0, 3)]["a"])
 
 
-def test_train_mode_points_to_the_roadmap(vmd_root):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TV.VideoMattingDataset(vmd_root["jax"], (48, 64), mode="train")
+def test_train_mode_points_to_the_roadmap(vmd_root, tmp_path):
+    """Validation items of the resize path with flow (``no_flow=False``,
+    no precomputed tree: each flow resized with its frames by
+    flow_crop_and_resize) equal to the JAX package's, S = 3 and 5, on a
+    copy of the tree whose flow PNGs hold random int16 flow, +-60 px
+    jumps and a third of the pixels invalid."""
+    root = str(tmp_path / "vmd")
+    shutil.copytree(vmd_root["jax"], root)
+    rng = np.random.RandomState(11)
+    flows = sorted(os.path.join(d, f) for d, _, fs in
+                   os.walk(os.path.join(root, "flow_png")) for f in fs)
+    for path in flows:
+        x = cv2.imread(path, -1)
+        h, w = x.shape[:2]
+        flow = rng.normal(0, 1.5, (h, w, 2)) + rng.uniform(-20, 20, 2)
+        flow[rng.rand(h, w) < 0.03] += 60.0
+        x[..., :2] = np.round(flow * 100).astype(np.int16).view(np.uint16)
+        x[..., 2] = np.where(rng.rand(h, w) < 0.3, 0, 255)
+        cv2.imwrite(path, x)
+    for length in (3, 5):
+        kw = dict(data_root=root, image_shape=(48, 40), mode="val",
+                  sample_length=length, no_flow=False)
+        want, got = JV.VideoMattingDataset(**kw), TV.VideoMattingDataset(**kw)
+        for i in range(len(got)):
+            w, g = want[i], got[(0, i)]
+            assert set(g) == set(w) and g["wb"].shape == (length, 48, 40, 2)
+            for k in w:
+                assert g[k].dtype == w[k].dtype, k
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+            assert np.isfinite(g["wb"][length // 2]).any()
+            assert np.isnan(g["wb"][length // 2]).any()

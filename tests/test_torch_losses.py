@@ -47,6 +47,38 @@ def test_l1_mask_empty_mask_takes_the_clamped_denominator(rng):
                                      jnp.asarray(m))), rtol=1e-5)
 
 
+@pytest.mark.parametrize("channels", [1, 3])
+def test_l1_mask_hard_mining_matches_jax(rng, channels):
+    """Loss, new_mask and the gradient with respect to x, on a batch whose
+    second sample has an empty mask (it keeps no pixel)."""
+    x, y = _pair(rng, (3, 16, 24, channels))
+    m = _mask(rng, (3, 16, 24, channels))
+    m[1] = 0.0
+    m[2, :4] = 0.7                        # above 0.5: inside the mask
+    want, want_mask = JL.l1_mask_hard_mining(*map(jnp.asarray, (x, y, m)))
+    want_grad = jax.grad(lambda a: JL.l1_mask_hard_mining(
+        a, jnp.asarray(y), jnp.asarray(m))[0])(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    got, got_mask = TL.l1_mask_hard_mining(xt, torch.from_numpy(y),
+                                           torch.from_numpy(m))
+    (got_grad,) = torch.autograd.grad(got, xt)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    assert got_mask.shape == (3, 16, 24, 1) and got_mask.dtype == xt.dtype
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+    np.testing.assert_allclose(got_grad.numpy(), np.asarray(want_grad),
+                               rtol=0, atol=1e-7)
+    kept = got_mask.sum(dim=(1, 2, 3)).tolist()
+    masked = (m[..., :1] > 0.5).sum(axis=(1, 2, 3))
+    assert kept[1] == 0 and kept[0] == masked[0] - masked[0] // 2 - 1
+    # three masked pixels in the whole batch keep one: the count's floor
+    m = np.zeros_like(m)
+    m[0, 3, 4:7] = 1.0
+    want, _ = JL.l1_mask_hard_mining(*map(jnp.asarray, (x, y, m)))
+    got, got_mask = TL.l1_mask_hard_mining(*map(torch.from_numpy, (x, y, m)))
+    assert got_mask.sum().item() == 1.0
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+
+
 @pytest.mark.parametrize("name", ["l1_grad", "l1_grad_masked",
                                   "exclusion_loss", "lap_loss",
                                   "sparsity_loss"])

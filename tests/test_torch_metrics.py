@@ -124,6 +124,5 @@ def test_calc_metric_needs_a_card_or_an_explicit_cpu(pred_tree):
     root, pred = pred_tree
     with pytest.raises(RuntimeError, match="CUDA"):
         calc_metric.main(["--pred", pred, "--data", root])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calc_metric.main(["--pred", pred, "--data", root, "--vis",
-                          "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calc_metric.main(["--pred", pred, "--data", root, "--vis"])

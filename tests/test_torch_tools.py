@@ -2,8 +2,9 @@
 depth (the tools build the depth an FBA checkpoint holds): pred_test over a
 root of videos with --shard (and GCA's VMN on one folder), pred_vmn (FBA,
 IndexNet, GCA) then calc_metric on a fake VideoMatting108 tree with the
-zlib PNG codec standing in for OpenCV, pred_single (FBA, DIM, GCA), and the
-flags that are not ported yet."""
+zlib PNG codec standing in for OpenCV, pred_single (FBA, DIM with --vis,
+GCA) and its Adobe-DIM sweep (FBA with --vis, DIM), and the flags that are
+not ported yet."""
 import argparse
 import json
 import os
@@ -119,22 +120,60 @@ def test_pred_vmn_then_calc_metric(ckpts, tmp_path, zlib_codec, model):
 def test_pred_single(ckpts, tmp_path, model):
     data, save = str(tmp_path / "vmd"), str(tmp_path / "pred")
     make_fake_dataset.make(data, frames=2, hw=(64, 64))
+    vis = ["--vis"] if model == "dim" else []
     res = pred_single.main(["--model", model, "--data", data, "--load",
                             ckpts[model], "--trimap", "narrow", "--save",
                             save, "--image_shape", "64", "64",
-                            "--n_threads", "0", "--batch", "2"] + CPU)
+                            "--n_threads", "0", "--batch", "2"] + vis + CPU)
     assert set(res) == {"mSAD", "MSE"} and 0 < res["mSAD"] < 1
     assert sorted(os.listdir(os.path.join(save, "clip_b"))) == [
         "00000_pred.png", "00000_tri.png", "00001_pred.png", "00001_tri.png"]
+    if vis:          # pred | gt and the caption strip, a sample
+        for i in range(2):
+            x = IO.imread(os.path.join(save, "vis", "clip_b", f"{i:05d}.png"))
+            assert x.shape == (64 + 100, 2 * 64, 3)
+
+
+@pytest.fixture
+def one_thread():
+    """The port's CPU work on one intra-op thread: beside the test run's
+    other workers, many threads a process stall each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("model", ["fba", "dim"])
+def test_pred_single_adobe(ckpts, tmp_path, one_thread, model):
+    """The Adobe-DIM still-image sweep at the resize grid of 64: the PNGs
+    at the JAX tool's crops (the still's size cut to the grid), finite
+    mSAD and MSE, and with --vis (FBA) one captioned image a still."""
+    data, save = str(tmp_path / "adobe"), tmp_path / "pred"
+    make_fake_dataset.make_adobe(data, n=2, hw=(80, 56))
+    vis = ["--vis"] if model == "fba" else []
+    res = pred_single.main(["--model", model, "--data", data, "--load",
+                            ckpts[model], "--trimap", "medium", "--save",
+                            str(save), "--dataset", "adobe", "--val_mode",
+                            "resize", "--min_shape", "64", "--batch", "2",
+                            "--n_threads", "0"] + vis + CPU)
+    assert set(res) == {"mSAD", "MSE"}
+    assert all(np.isfinite(v) and v > 0 for v in res.values())
+    for i, crop in enumerate([(64, 56), (64, 60)]):
+        for sfx in ("pred", "tri"):
+            x = IO.imread(str(save / f"{i:05d}_{sfx}.png"),
+                          IO.IMREAD_UNCHANGED)
+            assert x.shape == crop and x.dtype == np.uint8
+        if vis:
+            x = IO.imread(str(save / "vis" / f"{i:05d}.png"))
+            assert x.shape == (crop[0] + 100, 2 * crop[1], 3)
+    assert os.path.exists(save / "loss.log")
+    assert os.path.isdir(save / "vis") == bool(vis)
 
 
 def test_tools_raise_for_what_is_not_ported(ckpts, tmp_path):
     base = ["--data", str(tmp_path), "--load", ckpts["fba"], "--trimap",
             "medium"] + CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pred_single.main(["--model", "fba", "--dataset", "adobe"] + base)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pred_single.main(["--model", "fba", "--vis"] + base)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pred_vmn.main(["--model", "fba", "--space", "2"] + base)
     # a directory (the JAX package's orbax checkpoint) is not read
