@@ -98,7 +98,18 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    launches; the one-process runs here take a fresh process's TF32
    settings, which the tools' subprocesses keep: cuDNN's convolutions in
    TF32); the DDP step's ms beside the plain step's, each rank's peak
-   memory.
+   memory;
+16. train_<name>_bf16, train_<name>_remat (fba, dim, index, gca, as in
+   8 and 13) and train_cli_bf16_remat: TRAIN.BF16 (the JAX recipe: f32
+   arithmetic on bf16-rounded weights, state and batch) over five steps,
+   at each f32 state the bf16 step beside the f32 step (loss error, raw
+   gradient and Adam update cosines) and the bf16 trajectory beside the
+   f32 one, held to BF16_GATES (JAX's own guard), with ms, peak memory,
+   launches (no bf16 logits kernel) and the f32 dtypes of what it keeps;
+   --remat: two plain steps and one remat step from one state, remat
+   within twice the plain steps' spread (at least 1e-6), its peak below
+   the plain step's; tools.train --remat TRAIN.BF16 True for an epoch of
+   IndexNet's video config on train_cli's tree.
 
 The run adopts the orphans of every process it starts (a subreaper on
 Linux) and, when it ends, passed or failed, ends what is still running
@@ -1073,6 +1084,53 @@ def module_grad_errors(got: dict, want: dict) -> list:
     return sorted(rows, reverse=True)
 
 
+def train_setup(name: str):
+    """The ``train_<name>_f32`` phases' set-up of ``vmn_<name>`` at its
+    cfgs/vmd_vmn_<name>_pretrained_30ep.yaml's per-card batch (S = 5,
+    512x512): (task, trainer arguments, batch, radius, seed-0 weights;
+    GCA's u and v converged, DIM calibrated on the batch)."""
+    from tcvom_tpu_torch.config import load_config
+    from tcvom_tpu_torch.models import full_model as FM
+    from tcvom_tpu_torch.models.registry import (calibrate_random_weights,
+                                                 converge_spectral_norms)
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+
+    tcfg = load_config(str(ROOT / "cfgs" /
+                           f"vmd_vmn_{name}_pretrained_30ep.yaml")).TRAIN
+    b = tcfg.BATCH_SIZE_PER_GPU
+    h, w = tcfg.TRAIN_INPUT_SIZE
+    task = FM.TaskConfig(model=f"vmn_{name}", agg_window=WINDOW)
+    kw = dict(optimizer=tcfg.OPTIMIZER, lr_strategy=tcfg.LR_STRATEGY,
+              base_lr=tcfg.BASE_LR, weight_decay=tcfg.WEIGHT_DECAY,
+              total_iters=30)
+    batch = make_clip(b, 5, h, w, seed=5)
+    radius = FM.draw_radius(b, torch.Generator().manual_seed(3))
+    state = MattingTrainer(task, "vmd", **kw).init_state(
+        torch.Generator().manual_seed(0))
+    if name == "gca":
+        converge_spectral_norms(state.model)
+    if name == "dim":
+        calibrate_random_weights(state.model, lambda: FM.forward_vmd(
+            state.model, batch, task, radius))
+    weights = {k: v.clone() for k, v in state.model.state_dict().items()}
+    return task, kw, batch, radius, weights
+
+
+def fresh_state(trainer, weights, like=None):
+    """A state of ``trainer`` holding ``weights``, or with ``like`` a copy
+    of that state: weights, statistics, Adam's moments, step and
+    generators."""
+    st = trainer.init_state(torch.Generator().manual_seed(0))
+    st.model.load_state_dict(like.model.state_dict() if like else weights)
+    if like is not None:
+        st.optimizer.load_state_dict(like.optimizer.state_dict())
+        st.step = like.step
+        st.generator.set_state(like.generator.get_state())
+        if like.dropout_generator is not None:
+            st.dropout_generator.set_state(like.dropout_generator.get_state())
+    return st
+
+
 def train_backbone_phase(name: str, fam, edt_kernel, cuda_build,
                          profile_path=None):
     """The video trainer of ``vmn_<name>`` (DIM, IndexNet or GCA) at full
@@ -1093,38 +1151,14 @@ def train_backbone_phase(name: str, fam, edt_kernel, cuda_build,
     more kernel steps (and a profile of two with ``profile_path``) and one
     validation step (B = 6, S = 3, 544x960). Returns the launches of the
     kernel step and of the validation step."""
-    from tcvom_tpu_torch.config import load_config
-    from tcvom_tpu_torch.models import full_model as FM
-    from tcvom_tpu_torch.models.registry import (calibrate_random_weights,
-                                                 converge_spectral_norms)
     from tcvom_tpu_torch.train.trainer import MattingTrainer
 
-    tcfg = load_config(str(ROOT / "cfgs" /
-                           f"vmd_vmn_{name}_pretrained_30ep.yaml")).TRAIN
-    b = tcfg.BATCH_SIZE_PER_GPU
-    h, w = tcfg.TRAIN_INPUT_SIZE
-    task = FM.TaskConfig(model=f"vmn_{name}", agg_window=WINDOW)
-    trainer = MattingTrainer(task, "vmd", optimizer=tcfg.OPTIMIZER,
-                             lr_strategy=tcfg.LR_STRATEGY,
-                             base_lr=tcfg.BASE_LR,
-                             weight_decay=tcfg.WEIGHT_DECAY, total_iters=30)
-    batch = make_clip(b, 5, h, w, seed=5)
-    radius = FM.draw_radius(b, torch.Generator().manual_seed(3))
+    task, kw, batch, radius, weights = train_setup(name)
+    b, _, h, w = batch["a"].shape[:4]
+    trainer = MattingTrainer(task, "vmd", **kw)
 
-    def fresh(weights=None):
-        state = trainer.init_state(torch.Generator().manual_seed(0))
-        if weights is not None:
-            state.model.load_state_dict(weights)
-        return state
-
-    state = fresh()
-    if name == "gca":
-        converge_spectral_norms(state.model)
-    if name == "dim":
-        calibrate_random_weights(state.model, lambda: FM.forward_vmd(
-            state.model, batch, task, radius))
-    weights = {k: v.clone() for k, v in state.model.state_dict().items()}
-    del state
+    def fresh(weights):
+        return fresh_state(trainer, weights)
 
     def held_step(ctx):
         """One step from ``weights`` in ``ctx``, deterministic: (metrics,
@@ -1301,6 +1335,252 @@ def train_cli_phase(tmp):
     if moved or not head_moved or trained["step"] != 1:
         fail(f"pretrain_vmn_gca: frozen tensors moved {moved[:5]}, "
              f"{len(head_moved)} head statistics moved")
+
+
+# -- the bf16 training recipe and --remat ------------------------------------
+
+# JAX's own bf16 training guard (tools/validate_bf16_train.py GATES, which
+# the TPU run passed): the bf16 step's loss against the f32 step's at the
+# same state, and the bf16 trajectory's losses against the f32
+# trajectory's. Its update-cosine gate (0.90) is reported, not held: JAX's
+# guard fails it at 0.74 on a TPU v5 lite (BF16_TRAIN_GUARD.json).
+BF16_GATES = {"max_loss_rel_step0": 2e-2, "max_traj_ratio_dev": 0.25}
+BF16_STEPS = 5
+
+
+def flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().flatten() for t in tensors])
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Summed in f64: an f32 sum over 10^7 terms strays by ~1 %."""
+    a, b = a.double(), b.double()
+    return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
+
+
+@contextlib.contextmanager
+def logits_dtypes(fam_kernel):
+    """Records the q dtype of every launch of the logits kernel (the
+    recording wrapper calls the kernel, whose wrapper counts the
+    launch)."""
+    seen = []
+    real = fam_kernel.fam_window_logits
+
+    def recording(q, *a, **kw):
+        seen.append(str(q.dtype).removeprefix("torch."))
+        return real(q, *a, **kw)
+
+    with mock.patch.object(fam_kernel, "fam_window_logits", recording):
+        yield seen
+
+
+def train_bf16_phase(name: str, cuda_build, fam_kernel) -> dict:
+    """``TRAIN.BF16`` on ``vmn_<name>`` (``train_setup``): along the f32
+    trajectory, at each of ``BF16_STEPS`` states, the bf16 step on a copy
+    of the state beside the f32 step (their losses, the cosine of their
+    raw gradients and of their Adam updates); then the bf16 trajectory
+    from the same weights, batch and radii (its losses against the f32
+    trajectory's, ms, peak memory, launches and the dtypes of what it
+    keeps). Held to ``BF16_GATES``. Returns the bf16 trajectory's
+    launches."""
+    from tcvom_tpu_torch.models import full_model as FM
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+
+    task, kw, batch, _, weights = train_setup(name)
+    b = batch["a"].shape[0]
+    gen = torch.Generator().manual_seed(4)
+    radii = [FM.draw_radius(b, gen) for _ in range(BF16_STEPS)]
+    t32 = MattingTrainer(task, "vmd", **kw)
+    t16 = MattingTrainer(task, "vmd", compute_dtype=torch.bfloat16, **kw)
+
+    def step(trainer, st, k):
+        """(losses, gradients, update, ms, peak GiB) of one step; the
+        gradients and the update on the CPU, the peak without the copy of
+        the weights the update is taken from."""
+        before = flat(st.model.parameters())
+        held = before.numel() * before.element_size()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, m = trainer.train_step(st, batch, radii[k])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        grads = flat(p.grad for p in st.model.parameters()).cpu()
+        update = (flat(st.model.parameters()) - before).cpu()
+        return ({k_: v.item() for k_, v in m.items() if k_ != "lr"}, grads,
+                update, ms, peak)
+
+    st32 = fresh_state(t32, weights)
+    f32, rows = [], []
+    for k in range(BF16_STEPS):
+        fork = fresh_state(t16, weights, like=st32)
+        m16, g16, u16, _, _ = step(t16, fork, k)
+        del fork
+        torch.cuda.empty_cache()
+        m32, g32, u32, ms32, peak32 = step(t32, st32, k)
+        f32.append((m32, ms32, peak32))
+        rows.append(dict(loss_rel=m16["loss"] / m32["loss"] - 1.0,
+                         grad_cosine=cosine(g16, g32),
+                         update_cosine=cosine(u16, u32)))
+        del g16, u16, g32, u32
+    del st32
+    torch.cuda.empty_cache()
+
+    st16 = fresh_state(t16, weights)
+    cuda_build.LAUNCHES.clear()
+    traj = []
+    with logits_dtypes(fam_kernel) as dtypes:
+        for k in range(BF16_STEPS):
+            m16, _, _, ms16, peak16 = step(t16, st16, k)
+            traj.append((m16, ms16, peak16))
+    counts = dict(cuda_build.LAUNCHES)
+    opt_state = [t for s in st16.optimizer.state.values()
+                 for k, t in s.items() if k != "step"]
+    kept = {"parameters": {str(p.dtype) for p in st16.model.parameters()},
+            "moments": {str(t.dtype) for t in opt_state},
+            "buffers": {str(t.dtype) for t in st16.model.buffers()
+                        if t.is_floating_point()}}
+    del st16
+    torch.cuda.empty_cache()
+    ratio = [m16["loss"] / m32["loss"] for (m16, _, _), (m32, _, _)
+             in zip(traj, f32)]
+    logits = {f"fam_window_logits_{d}": dtypes.count(d)
+              for d in ("float32", "bfloat16")}
+    emit(phase=f"train_{name}_bf16", batch=b, steps=BF16_STEPS,
+         loss_rel=[r["loss_rel"] for r in rows],
+         grad_cosine=[r["grad_cosine"] for r in rows],
+         update_cosine=[r["update_cosine"] for r in rows],
+         f32_losses=[m["loss"] for m, _, _ in f32],
+         bf16_losses=[m["loss"] for m, _, _ in traj], traj_ratio=ratio,
+         gates=BF16_GATES, launches=counts, logits_launches=logits,
+         dtypes={k: sorted(v) for k, v in kept.items()},
+         f32_later_step_ms=float(np.median([ms for _, ms, _ in f32[1:]])),
+         bf16_later_step_ms=float(np.median([ms for _, ms, _ in traj[1:]])),
+         f32_step_ms=[ms for _, ms, _ in f32],
+         bf16_step_ms=[ms for _, ms, _ in traj],
+         f32_peak_gib=max(p for _, _, p in f32),
+         bf16_peak_gib=max(p for _, _, p in traj))
+    want = ({"edt_row": BF16_STEPS} if name == "fba" else {})
+    want["fam_window_logits"] = BF16_STEPS
+    if counts != want or logits["fam_window_logits_bfloat16"]:
+        fail(f"{name} bf16 trajectory launches {counts}, {logits}; want "
+             f"{want} and no bf16 logits")
+    if not kept["parameters"] or any(v - {"torch.float32"}
+                                     for v in kept.values()):
+        fail(f"{name} bf16 state dtypes {kept}: want f32")
+    if abs(rows[0]["loss_rel"]) > BF16_GATES["max_loss_rel_step0"]:
+        fail(f"{name} bf16 step-0 loss error {rows[0]['loss_rel']}")
+    dev = max(abs(r - 1.0) for r in ratio)
+    if not np.isfinite(dev) or dev > BF16_GATES["max_traj_ratio_dev"]:
+        fail(f"{name} bf16 trajectory ratio {ratio}")
+    return counts
+
+
+def train_remat_phase(name: str, cuda_build) -> dict:
+    """``--remat`` on ``vmn_<name>`` (``train_setup``): from one state and
+    one batch, with PyTorch's deterministic algorithms, two plain steps
+    and one remat step. The remat step's losses, each module's update,
+    the statistics, u, v and the next dropout mask within the larger of
+    twice the plain steps' spread and 1e-6 relative; its peak memory
+    (``max_memory_allocated``, reset per step) below the plain step's.
+    Returns the remat step's launches."""
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+
+    task, kw, batch, radius, weights = train_setup(name)
+    trainers = {False: MattingTrainer(task, "vmd", **kw),
+                True: MattingTrainer(task, "vmd", remat=True, **kw)}
+
+    def one(remat: bool):
+        """One step from ``weights``; what it returns is kept on the CPU,
+        so that each run's peak memory holds its own step alone."""
+        st = fresh_state(trainers[remat], weights)
+        before = {n: p.detach().cpu() for n, p in
+                  st.model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.LAUNCHES.clear()
+        # warn_only: FBA's bilinear upsampling has no deterministic
+        # backward; the plain steps' spread then holds its share
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t0 = time.perf_counter()
+            _, m = trainers[remat].train_step(st, batch, radius)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.use_deterministic_algorithms(False)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(cuda_build.LAUNCHES)
+        update = {n: (p.detach().cpu() - before[n]).double() for n, p in
+                  st.model.named_parameters()}
+        mask = None
+        if st.dropout_generator is not None:
+            mask = torch.empty(4096, device="cuda").bernoulli_(
+                0.5, generator=st.dropout_generator).cpu()
+        out = ({k: v.item() for k, v in m.items() if k != "lr"}, update,
+               {n: b.cpu() for n, b in train_buffers(st.model).items()},
+               mask, peak, ms, launches)
+        del st
+        return out
+
+    runs = [one(False), one(False), one(True)]
+
+    def errors(a, b):
+        (ma, ua, ba, ka, *_), (mb, ub, bb, kb, *_) = a, b
+        return {"loss": max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
+                            for k in mb),
+                "update": module_grad_errors(ua, ub)[0][0],
+                "buffer": max((((v - bb[n]).abs().max()
+                               / bb[n].abs().max().clamp_min(1e-30)).item()
+                              for n, v in ba.items()), default=0.0),
+                "mask": 0.0 if ka is None else float(
+                    (ka != kb).float().mean().item())}
+
+    spread = errors(runs[1], runs[0])
+    err = errors(runs[2], runs[0])
+    limit = {k: max(2 * v, 1e-6) for k, v in spread.items()}
+    limit["mask"] = 0.0
+    (_, _, _, _, peak, ms, _), (_, _, _, _, peak_r, ms_r, launches) = (
+        runs[0], runs[2])
+    emit(phase=f"train_{name}_remat", batch=batch["a"].shape[0],
+         remat_err=err, plain_spread=spread, limit=limit,
+         peak_gib=peak, remat_peak_gib=peak_r,
+         plain_step_ms=[r[5] for r in runs[:2]], remat_step_ms=ms_r,
+         launches=launches)
+    del runs
+    torch.cuda.empty_cache()
+    bad = {k: v for k, v in err.items() if v > limit[k]}
+    if bad:
+        fail(f"{name} remat step against plain: {bad}, limits {limit}")
+    if not peak_r < peak:
+        fail(f"{name} remat peak {peak_r} GiB, plain {peak}")
+    return launches
+
+
+def train_cli_bf16_remat_phase(tmp) -> dict:
+    """``python -m tcvom_tpu_torch.tools.train --remat`` with ``TRAIN.BF16
+    True``: the IndexNet video config (B = 4) on ``train_cli``'s fake tree
+    (2 steps an epoch), one epoch from random weights; its
+    ``train_stats.json``'s last losses finite. Returns the run's
+    launches."""
+    logs = tmp / "train_log_bf16_remat"
+    cfg = "vmd_vmn_index_pretrained_30ep.yaml"
+    secs = tool_run([sys.executable, "-m", "tcvom_tpu_torch.tools.train",
+                     "--cfg", str(ROOT / "cfgs" / cfg), "--remat",
+                     "SYSTEM.OUTDIR", str(logs), "DATASET.PATH",
+                     str(tmp / "vmd_train"), "TRAIN.LOAD_CKPT", "",
+                     "TRAIN.TOTAL_STEPS", "1", "TRAIN.BF16", "True"],
+                    "tools.train TRAIN.BF16 --remat")
+    with open(logs / (Path(cfg).stem + "_agg7") / "train_stats.json") as f:
+        stats = json.load(f)
+    emit(phase="train_cli_bf16_remat", cfg=cfg, seconds=secs, **stats)
+    if stats["step"] != 2 or not all(np.isfinite(v) for v in
+                                     stats["last_losses"].values()):
+        fail(f"train_cli_bf16_remat: step {stats['step']}, losses "
+             f"{stats['last_losses']}")
+    return stats["launches"]
 
 
 # the logged losses of two ranks against one process at their global
@@ -2214,6 +2494,14 @@ def main():
     # -- 15. data-parallel training and pred_vmn under torch.distributed.run --
     ddp_counts = train_ddp_phases(tmp)
     ddp_counts["pred_vmn_ddp"] = pred_vmn_ddp_phase(tmp, root)
+
+    # -- 16. TRAIN.BF16 and --remat of each video trainer, and the tool -----
+    bf16_counts, remat_counts = {}, {}
+    for name in ("fba", "dim", "index", "gca"):
+        bf16_counts[name] = train_bf16_phase(name, cuda_build, fam_kernel)
+        remat_counts[name] = train_remat_phase(name, cuda_build)
+        torch.cuda.empty_cache()
+    cli16_counts = train_cli_bf16_remat_phase(tmp)
     tmpdir.cleanup()
 
     # every row: the launches are its own path's (counts set to 0 just
@@ -2317,6 +2605,23 @@ def main():
              launches=ddp_counts["pred_vmn_ddp"]["fam_window_logits"],
              **logits_res[(2, 136, 240, 256)])]
     kernels += [dict(edt, path=path, **r) for path, r in adobe_res.items()]
+    train_res = {"fba": logits_res[(6, 64, 64, 256)],
+                 "dim": train_width_res[(24, 64, 64, 256)],
+                 "index": train_width_res[(24, 64, 64, 32)],
+                 "gca": train_width_res[(36, 64, 64, 128)]}
+    for name, res in train_res.items():
+        for path, n in ((f"train_{name}_bf16", bf16_counts[name]),
+                        (f"train_{name}_remat", remat_counts[name])):
+            kernels.append(dict(logits_c, path=path,
+                                launches=n.get("fam_window_logits", 0),
+                                **res))
+            if name == "fba":
+                kernels.append(dict(edt, path=path,
+                                    launches=n.get("edt_row", 0),
+                                    **edt_train_res["train"]))
+    kernels.append(dict(logits_c, path="train_cli_bf16_remat",
+                        launches=cli16_counts.get("fam_window_logits", 0),
+                        **train_res["index"]))
     emit(phase="wall", seconds=time.perf_counter() - t_start)
     emit(phase="stop", subreaper=adopted, **stop_children())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tcvom_tpu_torch.models.layers import BatchNorm
+from tcvom_tpu_torch.models.layers import BatchNorm, Conv2d
 from tcvom_tpu_torch.ops.image import max_pool_argmax_2x2, max_unpool_2x2
 
 _STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
@@ -31,10 +31,10 @@ def _add_encoder(m: nn.Module, input_chn: int) -> None:
     cin = input_chn
     for stage, (n_convs, feat) in enumerate(_STAGES, start=1):
         for j in range(1, n_convs + 1):
-            m.add_module(f"conv{stage}{j}", nn.Conv2d(cin, feat, 3, padding=1))
+            m.add_module(f"conv{stage}{j}", Conv2d(cin, feat, 3, padding=1))
             m.add_module(f"bn{stage}{j}", BatchNorm(feat))
             cin = feat
-    m.conv6 = nn.Conv2d(512, 4096, 7, padding=3)
+    m.conv6 = Conv2d(512, 4096, 7, padding=3)
 
 
 def _encode(m: nn.Module, x: torch.Tensor) -> dict:
@@ -74,10 +74,10 @@ class DIMDecoder(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.dconv6 = nn.Conv2d(4096, 512, 1)
+        self.dconv6 = Conv2d(4096, 512, 1)
         for name, cin, cout in _UP:
-            self.add_module(name, nn.Conv2d(cin, cout, 5, padding=2))
-        self.alpha_pred = nn.Conv2d(64, 1, 5, padding=2)
+            self.add_module(name, Conv2d(cin, cout, 5, padding=2))
+        self.alpha_pred = Conv2d(64, 1, 5, padding=2)
 
     @staticmethod
     def prune_enc_head(enc: dict) -> dict:

@@ -12,8 +12,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tcvom_tpu_torch.models.layers import (EncoderDecoder, GroupNorm32,
-                                           WSConv2d, at_least_f32)
+from tcvom_tpu_torch.models.layers import (Conv2d, EncoderDecoder,
+                                           GroupNorm32, WSConv2d,
+                                           at_least_f32)
 from tcvom_tpu_torch.ops.image import (adaptive_avg_pool, max_pool,
                                        resize_bilinear)
 
@@ -124,9 +125,9 @@ class FBADecoder(nn.Module):
         self.conv_up2 = nn.Sequential(*_conv_gn_lrelu(256 + 256, 256))
         self.conv_up3 = nn.Sequential(*_conv_gn_lrelu(256 + 64, 64))
         self.conv_up4 = nn.Sequential(
-            nn.Conv2d(64 + 3 + 3 + 2, 32, 3, padding=1), nn.LeakyReLU(0.01),
-            nn.Conv2d(32, 16, 3, padding=1), nn.LeakyReLU(0.01),
-            nn.Conv2d(16, 7, 1))
+            Conv2d(64 + 3 + 3 + 2, 32, 3, padding=1), nn.LeakyReLU(0.01),
+            Conv2d(32, 16, 3, padding=1), nn.LeakyReLU(0.01),
+            Conv2d(16, 7, 1))
 
     @staticmethod
     def prune_enc_head(enc: dict) -> dict:

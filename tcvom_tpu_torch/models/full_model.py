@@ -5,6 +5,13 @@ tcvom_tpu/models/full_model.py).
 Tensors here keep the JAX package's layout: ``[B, H, W, C]`` (eval) or
 ``[B, S, H, W, C]`` (clips), f32 in [0, 255], BGR. The model itself is
 NCHW; :func:`_run_vmn` converts at its boundary.
+
+A bf16 batch (the bf16 training recipe) is synthesized in bf16 as in JAX
+(tcvom_tpu/models/full_model.py:59-109): the scales, the composite and
+the trimap encodings keep the batch's dtype, 1/255 rounded to it as JAX
+rounds a Python float there, except FBA's EDT planes (f32, kernel A);
+``imgs`` is promoted to f32 by the f32 mean and std, and so is the
+network's input.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch.nn.functional as F
 
 from tcvom_tpu_torch import parallel
 from tcvom_tpu_torch.models import registry
+from tcvom_tpu_torch.models.layers import weak
 from tcvom_tpu_torch.ops import losses as L
 from tcvom_tpu_torch.ops.distance import trimap_transform
 from tcvom_tpu_torch.ops.image import avg_pool, dilate_by_radius, unfold
@@ -133,9 +141,10 @@ def make_trimap(alpha: torch.Tensor, cfg: TaskConfig,
 def preprocess(a, fg, bg, cfg: TaskConfig, radius=None) -> dict:
     """Compose, normalize and synthesize trimaps (models/model.py:82-92),
     without gradient, as the reference's ``torch.no_grad()`` block."""
-    scaled_gts = a * IMG_SCALE
-    scaled_fgs = fg.flip(-1) * IMG_SCALE          # BGR -> RGB
-    scaled_bgs = bg.flip(-1) * IMG_SCALE
+    scale = weak(IMG_SCALE, a.dtype)
+    scaled_gts = a * scale
+    scaled_fgs = fg.flip(-1) * scale              # BGR -> RGB
+    scaled_bgs = bg.flip(-1) * scale
     scaled_imgs = scaled_fgs * scaled_gts + scaled_bgs * (1.0 - scaled_gts)
     tris, trimasks = make_trimap(scaled_gts, cfg, radius)
     return dict(scaled_imgs=scaled_imgs, scaled_fgs=scaled_fgs,

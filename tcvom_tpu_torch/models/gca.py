@@ -21,7 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tcvom_tpu_torch.models.layers import BatchNorm, EncoderDecoder, SNConv2d
+from tcvom_tpu_torch.models.layers import (BatchNorm, Conv2d, EncoderDecoder,
+                                           SNConv2d)
 from tcvom_tpu_torch.ops.gca_attention import guided_attention_core
 from tcvom_tpu_torch.ops.image import reflection_pad, resize_nearest
 
@@ -43,10 +44,10 @@ class GuidedCxtAtten(nn.Module):
 
     def __init__(self, out_channels: int = 128, guidance_channels: int = 128):
         super().__init__()
-        self.guidance_conv = nn.Conv2d(guidance_channels,
+        self.guidance_conv = Conv2d(guidance_channels,
                                        guidance_channels // 2, 1)
         self.W = nn.Sequential(
-            nn.Conv2d(out_channels, out_channels, 1, bias=False),
+            Conv2d(out_channels, out_channels, 1, bias=False),
             BatchNorm(out_channels))
 
     def forward(self, f, alpha, unknown):
@@ -188,7 +189,7 @@ class GCADecoder(nn.Module):
         self.layer4 = _make_layer(DecBasicBlock, 64, 32, layers[3], 2)
         self.conv1 = SNConv2d(32, 32, 4, 2, 1, transpose=True)
         self.bn1 = BatchNorm(32)
-        self.conv2 = nn.Conv2d(32, 1, 3, padding=1)
+        self.conv2 = Conv2d(32, 1, 3, padding=1)
         self.gca = GuidedCxtAtten(128, 128)
 
     @staticmethod

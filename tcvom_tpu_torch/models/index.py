@@ -13,8 +13,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tcvom_tpu_torch.models.layers import (BatchNorm, Dropout, EncoderDecoder,
-                                           conv_bn_relu6)
+from tcvom_tpu_torch.models.layers import (BatchNorm, Conv2d, Dropout,
+                                           EncoderDecoder, conv_bn_relu6)
 from tcvom_tpu_torch.ops.image import pixel_shuffle, resize_nearest
 
 # (expand ratio, out channels, blocks) of layer1..layer7
@@ -31,12 +31,12 @@ class InvertedResidual(nn.Module):
         super().__init__()
         hidden = round(inp * expand_ratio)
         layers = [] if expand_ratio == 1 else [
-            nn.Conv2d(inp, hidden, 1, bias=False), BatchNorm(hidden),
+            Conv2d(inp, hidden, 1, bias=False), BatchNorm(hidden),
             nn.ReLU6()]
-        layers += [nn.Conv2d(hidden, hidden, 3, padding=1, groups=hidden,
+        layers += [Conv2d(hidden, hidden, 3, padding=1, groups=hidden,
                              bias=False),
                    BatchNorm(hidden), nn.ReLU6(),
-                   nn.Conv2d(hidden, oup, 1, bias=False), BatchNorm(oup)]
+                   Conv2d(hidden, oup, 1, bias=False), BatchNorm(oup)]
         self.conv = nn.Sequential(*layers)
         self.use_res = inp == oup
 
@@ -55,8 +55,8 @@ class DepthwiseM2OIndexBlock(nn.Module):
         super().__init__()
         for i in range(1, 5):
             self.add_module(f"indexnet{i}", nn.Sequential(
-                nn.Conv2d(inp, inp, 4, 2, 1, bias=False), BatchNorm(inp),
-                nn.ReLU6(), nn.Conv2d(inp, inp, 1, bias=False)))
+                Conv2d(inp, inp, 4, 2, 1, bias=False), BatchNorm(inp),
+                nn.ReLU6(), Conv2d(inp, inp, 1, bias=False)))
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         y = torch.sigmoid(torch.stack(
@@ -89,7 +89,7 @@ class ASPP(nn.Module):
         self.aspp1 = _ASPPBranch(*conv_bn_relu6(inp, 256, 1))
         for i, d in ((2, 2), (3, 4), (4, 8)):
             self.add_module(f"aspp{i}", _ASPPBranch(
-                nn.Conv2d(inp, inp, 3, padding=d, dilation=d, groups=inp,
+                Conv2d(inp, inp, 3, padding=d, dilation=d, groups=inp,
                           bias=False), BatchNorm(inp), nn.ReLU6(),
                 *conv_bn_relu6(inp, 256, 1)))
         self.global_avg_pool = nn.Sequential(nn.AdaptiveAvgPool2d(1),
@@ -184,7 +184,7 @@ class IndexMattingDecoder(nn.Module):
         for name, cin, cout, _, _ in _DECODER:
             self.add_module(name, IndexedUpsampling(cin, cout))
         self.pred = nn.Sequential(conv_bn_relu6(32, 1, 5),
-                                  nn.Conv2d(1, 1, 5, padding=2, bias=False))
+                                  Conv2d(1, 1, 5, padding=2, bias=False))
 
     @staticmethod
     def prune_enc_head(enc: dict) -> dict:

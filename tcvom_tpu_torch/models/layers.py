@@ -1,10 +1,34 @@
 """Layer primitives of the matting backbones (port of
-tcvom_tpu/models/layers.py), NCHW with OIHW kernels."""
+tcvom_tpu/models/layers.py), NCHW with OIHW kernels.
+
+Under the bf16 training recipe (``MattingTrainer(compute_dtype=
+torch.bfloat16)``) the layers receive bf16 parameters and f32
+activations, as the JAX package's layers do under its ``_cast_compute``
+(its normalized input is promoted to f32 by the f32 mean and std). Each
+layer then does what the JAX layer does: a weight is cast to its input's
+dtype for the product with the input (so the arithmetic is f32 on
+bf16-rounded weights, and the gradient is rounded to bf16 by that cast's
+backward), what a layer computes from its parameters and state alone runs
+in the parameters' dtype (weight standardization excepted: f32, cast
+back), and the state it reads (BatchNorm's running statistics,
+``u``, ``v``) is rounded to that dtype; new state is stored in the f32
+buffers. With parameters and input of one dtype every layer is as
+before.
+
+Under ``checkpointed`` (``--remat``) a forward runs twice, the second
+time in the backward pass; :func:`recomputing` tells a layer that it is
+in the second run, where it writes no state and draws no new random
+numbers.
+"""
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from tcvom_tpu_torch import parallel
 
@@ -13,6 +37,68 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """``x`` in f32, or in f64 when it is f64: the f32 islands of a bf16
     network stay f32, and an f64 network stays f64 throughout."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def weak(value: float, dtype: torch.dtype) -> float:
+    """The Python float ``value`` rounded to ``dtype``, as JAX converts a
+    Python scalar that meets an array of that dtype (a weak type); torch
+    would compute with the unrounded value."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+# -- recomputation (--remat) --------------------------------------------------
+
+class _Run:
+    """A ``checkpointed`` call: whether its forward is being recomputed,
+    and the generator states its Dropouts drew from in the first run."""
+
+    def __init__(self):
+        self.replaying = False
+        self.draws: dict[int, list[torch.Tensor]] = {}
+
+
+# the checkpointed call whose forward runs now in this thread: set by its
+# checkpoint's context managers, in the thread that runs each of its runs
+_RUN: contextvars.ContextVar[_Run | None] = contextvars.ContextVar(
+    "checkpointed_run", default=None)
+
+
+@contextlib.contextmanager
+def _in_run(run: _Run, replaying: bool):
+    run.replaying = replaying
+    token = _RUN.set(run)
+    try:
+        yield
+    finally:
+        _RUN.reset(token)
+
+
+def recomputing() -> bool:
+    """Whether a ``checkpointed`` forward is being recomputed now (in the
+    backward pass). The layers that write in their forward read it:
+    BatchNorm leaves its statistics and SNConv2d its ``u``, ``v`` as the
+    first run left them, and Dropout draws its first run's mask again."""
+    run = _RUN.get()
+    return run is not None and run.replaying
+
+
+def checkpointed(module: nn.Module, *args):
+    """``module(*args)`` under non-reentrant ``torch.utils.checkpoint``:
+    its activations are freed after the forward and recomputed in the
+    backward pass (the JAX package's ``nn.remat``,
+    tcvom_tpu/models/registry.py:38-58). The recomputation reads the
+    parameters the first run read (under the bf16 recipe their bf16
+    casts, which are gone from the module by then) and, through
+    :func:`recomputing`, writes no state. Without gradient it is the
+    plain call."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    params = dict(module.named_parameters())
+    run = _Run()
+    return torch.utils.checkpoint.checkpoint(
+        lambda *a: torch.func.functional_call(module, params, a), *args,
+        use_reentrant=False,
+        context_fn=lambda: (_in_run(run, False), _in_run(run, True)))
 
 
 def ws_standardize(weight: torch.Tensor) -> torch.Tensor:
@@ -27,18 +113,44 @@ def ws_standardize(weight: torch.Tensor) -> torch.Tensor:
     return (w / std[:, None, None, None]).to(weight.dtype)
 
 
-class WSConv2d(nn.Conv2d):
-    """Weight-standardized conv (FBA; reference models/FBA/layers_WS.py)."""
+def _like(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
+    """Parameter ``p`` in ``x``'s dtype (itself when it is already)."""
+    return None if p is None else p.to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose weight and bias are cast to the input's dtype
+    (the JAX package's ``nn.Conv`` promotes them alike)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, ws_standardize(self.weight), self.bias,
-                        self.stride, self.padding, self.dilation, self.groups)
+        return self._conv_forward(x, _like(self.weight, x),
+                                  _like(self.bias, x))
 
 
-def GroupNorm32(channels: int) -> nn.GroupNorm:
-    """GroupNorm(32, eps 1e-5) (FBA's ``norm``, models/FBA/layers_WS.py:26).
-    PyTorch keeps the statistics in f32 for bf16 inputs."""
-    return nn.GroupNorm(32, channels, eps=1e-5)
+class WSConv2d(nn.Conv2d):
+    """Weight-standardized conv (FBA; reference models/FBA/layers_WS.py).
+    The standardized weight, in the parameter's dtype, is cast to the
+    input's (tcvom_tpu/models/layers.py:251)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, ws_standardize(self.weight).to(x.dtype),
+                        _like(self.bias, x), self.stride, self.padding,
+                        self.dilation, self.groups)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` whose affine is cast to the input's dtype. PyTorch
+    keeps the statistics in f32 for bf16 inputs, as the JAX package's
+    ``_GroupNorm`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x, self.num_groups, _like(self.weight, x),
+                            _like(self.bias, x), self.eps)
+
+
+def GroupNorm32(channels: int) -> GroupNorm:
+    """GroupNorm(32, eps 1e-5) (FBA's ``norm``, models/FBA/layers_WS.py:26)."""
+    return GroupNorm(32, channels, eps=1e-5)
 
 
 class EncoderDecoder(nn.Module):
@@ -78,20 +190,36 @@ class BatchNorm(nn.BatchNorm2d):
     variance are sums over the ranks through a differentiable all-reduce,
     and the running statistics move toward those, alike on every rank.
     ``torch.nn.SyncBatchNorm`` would update them from the unbiased
-    variance and runs on the card only."""
+    variance and runs on the card only.
+
+    Under the bf16 recipe (bf16 weight and bias, f32 input) training
+    normalizes with the f32 input's statistics and the affine cast to
+    f32, and the running statistics move in JAX's order
+    (tcvom_tpu/models/layers.py:111-117; flax alike): flax's momentum
+    (0.9, torch's ``1 - momentum``; a weak Python float, so rounded to
+    bf16) times the old value rounded to bf16, in bf16, plus ``(1 -
+    0.9) * batch`` in f32, stored in f32.
+    In eval mode (a frozen backbone) it is flax's ``_normalize`` on the
+    statistics rounded to bf16: ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias``, the bracket in bf16. While a ``checkpointed``
+    forward is recomputed the statistics are left as they are (the
+    synchronized form still does its all-reduces, alike on every
+    rank)."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.momentum is None:
+            if self.weight.dtype != x.dtype and not self.training:
+                return self._eval_cast(x)
             return super().forward(x)
         if parallel.world() > 1:
             return self._synced(x)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
-                         self.eps)
+        y = F.batch_norm(x, mean, var, _like(self.weight, x),
+                         _like(self.bias, x), True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
         self._update(mean, var * ((n - 1) / n))
         return y
@@ -106,15 +234,35 @@ class BatchNorm(nn.BatchNorm2d):
         mean = parallel.all_reduce_sum_grad(x.sum(dims)) / count
         xc = x - mean[None, :, None, None]
         var = parallel.all_reduce_sum_grad((xc * xc).sum(dims)) / count
-        scale = self.weight * torch.rsqrt(var + self.eps)
+        scale = _like(self.weight, x) * torch.rsqrt(var + self.eps)
         self._update(mean.detach(), var.detach())
-        return xc * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return (xc * scale[None, :, None, None]
+                + _like(self.bias, x)[None, :, None, None])
+
+    def _eval_cast(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval mode under the bf16 recipe (flax's ``_normalize``)."""
+        dt = self.weight.dtype
+        mean, var = (b.to(dt)[None, :, None, None]
+                     for b in (self.running_mean, self.running_var))
+        mul = torch.rsqrt(var + weak(self.eps, dt)) * self.weight[
+            None, :, None, None]
+        return (x - mean) * mul + self.bias[None, :, None, None]
 
     @torch.no_grad()
     def _update(self, mean: torch.Tensor, biased_var: torch.Tensor) -> None:
+        if recomputing():
+            return
         self.num_batches_tracked.add_(1)
-        self.running_mean.lerp_(mean, self.momentum)
-        self.running_var.lerp_(biased_var, self.momentum)
+        dt = self.weight.dtype
+        if dt == self.running_mean.dtype:
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(biased_var, self.momentum)
+            return
+        keep = torch.tensor(1.0 - self.momentum, dtype=dt,
+                            device=self.running_mean.device)
+        for buf, new in ((self.running_mean, mean),
+                         (self.running_var, biased_var)):
+            buf.copy_(keep * buf.to(dt) + self.momentum * new)
 
 
 class Dropout(nn.Dropout):
@@ -126,20 +274,39 @@ class Dropout(nn.Dropout):
     more than one rank the mask is drawn for every rank's rows (the
     generator is seeded alike on each) and the rank keeps its own, so
     that a step of the ranks is the one-process step on their global
-    batch."""
+    batch.
+
+    Under ``checkpointed`` the first run keeps the generator's state
+    before its draw, and the recomputation draws from a copy at that
+    state: the same mask, and the generator stands where one plain
+    forward leaves it (``checkpoint``'s ``preserve_rng_state`` covers
+    only torch's default generators)."""
 
     generator: torch.Generator | None = None
+
+    def _source(self) -> torch.Generator:
+        """The generator of this draw (see the class docstring)."""
+        run = _RUN.get()
+        if run is None:
+            return self.generator
+        states = run.draws.setdefault(id(self), [])
+        if not run.replaying:
+            states.append(self.generator.get_state())
+            return self.generator
+        replay = torch.Generator(self.generator.device)
+        replay.set_state(states.pop(0))
+        return replay
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.generator is None:
             return super().forward(x)
-        n = parallel.world()
+        n, gen = parallel.world(), self._source()
         if n == 1:
             keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                                  generator=self.generator)
+                                                  generator=gen)
         else:
             keep = x.new_empty((x.shape[0] * n,) + x.shape[1:]).bernoulli_(
-                1.0 - self.p, generator=self.generator)
+                1.0 - self.p, generator=gen)
             keep = keep[parallel.shard_slice(keep.shape[0])]
         return x * keep / (1.0 - self.p)
 
@@ -149,7 +316,7 @@ def conv_bn_relu6(cin: int, cout: int, kernel: int) -> nn.Sequential:
     (``min(max(x, 0), 6)``), the reference's ``conv_bn``
     (models/Index/hlconv.py:36-41): keys ``.0`` and ``.1``."""
     return nn.Sequential(
-        nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False),
+        Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False),
         BatchNorm(cout), nn.ReLU6())
 
 
@@ -186,13 +353,20 @@ class SNConv2d(nn.Module):
     ``.train()`` mode one power iteration updates them first, without
     gradient (``v = l2n(W^T u)``, ``u = l2n(W v)``); the gradient reaches
     the weight through sigma only, as the JAX package's ``stop_gradient``s
-    of ``u`` and ``v`` have it.
+    of ``u`` and ``v`` have it. While a ``checkpointed`` forward is
+    recomputed there is no power iteration: sigma is taken from the
+    ``u``, ``v`` the first run left.
 
     Sigma and the normalized weight are computed in at least f32 and the
     weight cast to the input's dtype. The JAX package's bf16 stream casts
     ``u``, ``v`` and the kernel to bf16 and computes sigma in bf16
     (tcvom_tpu/infer/predict.py:159); here a model cast to bf16 holds
     bf16 ``u``, ``v`` and ``weight_bar`` too, but sigma is not rounded.
+    Under the bf16 training recipe (a bf16 ``weight_bar`` before an f32
+    input) the power iteration, sigma and ``weight_bar / sigma`` run in
+    bf16 on ``u``, ``v`` rounded to bf16, as JAX's do there (its state
+    and kernel are cast to bf16, ``SNConv`` :305-316); the new ``u``,
+    ``v`` are stored in the f32 buffers.
 
     The transposed conv is ``F.conv_transpose2d`` on the IOHW weight, the
     JAX package's ``conv_transpose_torch``."""
@@ -206,29 +380,41 @@ class SNConv2d(nn.Module):
         self.module = _SNParams(shape)
         self.stride, self.padding, self.transpose = stride, padding, transpose
 
-    def _wmat(self) -> torch.Tensor:
-        w = at_least_f32(self.module.weight_bar)
+    def _dtype(self, x: torch.Tensor | None = None) -> torch.dtype:
+        """The dtype of the power iteration and sigma: the weight's under
+        the bf16 recipe (``x`` of another dtype), else at least f32."""
+        dt = self.module.weight_bar.dtype
+        if x is not None and x.dtype != dt:
+            return dt
+        return torch.promote_types(dt, torch.float32)
+
+    def _wmat(self, dtype: torch.dtype) -> torch.Tensor:
+        w = self.module.weight_bar.to(dtype)
         return w.reshape(w.shape[0], -1)
 
     @torch.no_grad()
-    def power_iteration(self) -> None:
-        """One power-iteration step on the stored ``u``, ``v``."""
-        wmat = self._wmat().detach()
+    def power_iteration(self, dtype: torch.dtype | None = None) -> None:
+        """One power-iteration step on the stored ``u``, ``v``, in
+        ``dtype`` (default: at least f32)."""
+        dtype = dtype or self._dtype()
+        wmat = self._wmat(dtype).detach()
         m = self.module
-        v = l2n(wmat.t() @ at_least_f32(m.weight_u))
+        v = l2n(wmat.t() @ m.weight_u.to(dtype))
         u = l2n(wmat @ v)
         m.weight_u.copy_(u)
         m.weight_v.copy_(v)
 
-    def sigma(self) -> torch.Tensor:
+    def sigma(self, dtype: torch.dtype | None = None) -> torch.Tensor:
+        dtype = dtype or self._dtype()
         m = self.module
-        u, v = (at_least_f32(t).detach() for t in (m.weight_u, m.weight_v))
-        return u @ (self._wmat() @ v)
+        u, v = (t.to(dtype).detach() for t in (m.weight_u, m.weight_v))
+        return u @ (self._wmat(dtype) @ v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            self.power_iteration()
-        w = (at_least_f32(self.module.weight_bar) / self.sigma()).to(x.dtype)
+        dt = self._dtype(x)
+        if self.training and not recomputing():
+            self.power_iteration(dt)
+        w = (self.module.weight_bar.to(dt) / self.sigma(dt)).to(x.dtype)
         if self.transpose:
             return F.conv_transpose2d(x, w, None, self.stride, self.padding)
         return F.conv2d(x, w, None, self.stride, self.padding)

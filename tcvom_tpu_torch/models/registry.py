@@ -80,7 +80,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(model_name: str, agg_window: int = 7, agg_reduction: int = 1,
                 layers=(3, 4, 6, 3), device: str | torch.device = "cuda",
                 generator: torch.Generator | None = None,
-                freeze_backbone: bool = False) -> nn.Module:
+                freeze_backbone: bool = False, remat: bool = False
+                ) -> nn.Module:
     """Construct a model with random weights drawn from ``generator``
     (seed 0 if None), in eval mode on ``device`` (``.train()`` switches it,
     as the trainer does; FBA has no layer that depends on the mode, DIM's,
@@ -90,7 +91,9 @@ def build_model(model_name: str, agg_window: int = 7, agg_reduction: int = 1,
     and gca. ``layers`` sets FBA's encoder blocks per stage (depth only;
     widths are the published ones; the other backbones ignore it);
     ``freeze_backbone`` runs the encoder and the extract half of a VMN
-    without gradient."""
+    without gradient; ``remat`` recomputes a VMN's encoder in the backward
+    pass (``models/vmn.py``; the single-frame models ignore it, as the JAX
+    package's do)."""
     dev = resolve_device(device)
     method = method_of(model_name)
     if method != "fba" and method not in _SINGLE:
@@ -100,7 +103,7 @@ def build_model(model_name: str, agg_window: int = 7, agg_reduction: int = 1,
                  if method == "fba"
                  else tuple(cls() for cls in _VMN_PARTS[method]))
         model = VMN(*parts, FAM_CHANNELS[method], agg_window, agg_reduction,
-                    freeze_backbone)
+                    freeze_backbone, remat)
     else:
         model = FBA(layers) if method == "fba" else _SINGLE[method]()
     init_weights(model, generator or torch.Generator().manual_seed(0))

@@ -10,13 +10,19 @@ gradient and stay in eval mode under ``.train()`` (their BatchNorms keep
 and use their running statistics, their spectral-norm convs do no power
 iteration: the JAX package's ``train=False`` there), and the trainer keeps
 their parameters out of the optimizer.
+
+``remat`` runs the encoder of a training forward under
+``layers.checkpointed`` (the JAX package's ``nn.remat`` of the encoder,
+tcvom_tpu/models/registry.py:38-58): its activations are recomputed in
+the backward pass instead of kept. Under ``freeze_backbone`` the encoder
+runs without gradient and ``remat`` changes nothing.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from tcvom_tpu_torch.models.layers import EncoderDecoder
+from tcvom_tpu_torch.models.layers import Conv2d, EncoderDecoder, checkpointed
 from tcvom_tpu_torch.ops import fam as fam_ops
 from tcvom_tpu_torch.ops.image import resize_nearest
 
@@ -48,9 +54,9 @@ class FeatureAggregationModule(nn.Module):
     def __init__(self, input_chn: int, reduction: int = 1, window: int = 7):
         super().__init__()
         out_chn = input_chn // reduction
-        self.key_conv = nn.Conv2d(input_chn, out_chn, 3, padding=1)
-        self.query_conv = nn.Conv2d(input_chn, out_chn, 3, padding=1)
-        self.value_conv = nn.Conv2d(input_chn, out_chn, 3, padding=1)
+        self.key_conv = Conv2d(input_chn, out_chn, 3, padding=1)
+        self.query_conv = Conv2d(input_chn, out_chn, 3, padding=1)
+        self.value_conv = Conv2d(input_chn, out_chn, 3, padding=1)
         self.window = window
 
     def qkv(self, x):
@@ -86,13 +92,15 @@ class VMN(EncoderDecoder):
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
                  fam_channels: int, agg_window: int = 7,
-                 agg_reduction: int = 1, freeze_backbone: bool = False):
+                 agg_reduction: int = 1, freeze_backbone: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
         self.decoder.fam = FeatureAggregationModule(
             fam_channels, agg_reduction, agg_window)
         self.freeze_backbone = freeze_backbone
+        self.remat = remat
 
     @property
     def fam(self) -> FeatureAggregationModule:
@@ -145,8 +153,9 @@ class VMN(EncoderDecoder):
 
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.freeze_backbone):
-            enc = _with_extras(self.encoder(fold(images)),
-                               _tree_map(fold, extras))
+            enc = _with_extras(
+                checkpointed(self.encoder, fold(images)) if self.remat
+                else self.encoder(fold(images)), _tree_map(fold, extras))
             feat = self.decoder(enc, mode="extract")
         feat = unfold(feat, s)
         agg, attb, attf, small = self.fam(

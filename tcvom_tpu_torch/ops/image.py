@@ -96,9 +96,28 @@ def _channels_last_op(fn, x: torch.Tensor) -> torch.Tensor:
 
 def avg_pool(x: torch.Tensor, window: int, stride: int | None = None,
              padding: int = 0) -> torch.Tensor:
-    """Average pool over H, W of ``[..., H, W, C]`` (``F.avg_pool2d``)."""
-    return _channels_last_op(
-        lambda t: F.avg_pool2d(t, window, stride or window, padding), x)
+    """Average pool over H, W of ``[..., H, W, C]`` (``F.avg_pool2d``).
+
+    Below f32 (the bf16 training recipe's loss targets) the window is
+    summed in the input's dtype, one element after another in row-major
+    order, then divided: the JAX package's ``reduce_window`` sum in bf16
+    as XLA runs it (``F.avg_pool2d`` sums in f32 and rounds once, which
+    moves 1 in 8 of the bf16 means of an 8x8 window)."""
+    stride = stride or window
+    if x.dtype.itemsize >= 4:
+        return _channels_last_op(
+            lambda t: F.avg_pool2d(t, window, stride, padding), x)
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    h = (x.shape[-3] - window) // stride + 1
+    w = (x.shape[-2] - window) // stride + 1
+    acc = None
+    for dy in range(window):
+        for dx in range(window):
+            t = x[..., dy:dy + stride * (h - 1) + 1:stride,
+                  dx:dx + stride * (w - 1) + 1:stride, :]
+            acc = t if acc is None else acc + t
+    return acc / (window * window)
 
 
 def unfold(x: torch.Tensor, kernel: int) -> torch.Tensor:

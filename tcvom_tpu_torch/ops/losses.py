@@ -152,10 +152,19 @@ def sparsity_loss(pred: torch.Tensor, trimask: torch.Tensor, eps: float = 1e-5,
 
 
 def _conv_gauss(img: torch.Tensor, scale: float) -> torch.Tensor:
-    """Depthwise ``scale`` * Gauss 5x5, reflect-padded, on NCHW."""
+    """Depthwise ``scale`` * Gauss 5x5, reflect-padded, on NCHW, in the
+    image's dtype (bf16 for the bf16 recipe's targets, as in JAX). A bf16
+    image on the card takes PyTorch's own convolution: cuDNN's bf16 path
+    returns wrong values for some of these small convolutions on the H100
+    (a 1-channel image of 20x20 padded, off by up to 0.73;
+    ``tests/test_torch_cuda.py::test_bf16_gauss_conv_on_card_matches_cpu``)."""
     c = img.shape[1]
     k = (_GAUSS_5x5 * scale).to(img).expand(c, 1, 5, 5)
-    return F.conv2d(F.pad(img, (2, 2, 2, 2), mode="reflect"), k, groups=c)
+    padded = F.pad(img, (2, 2, 2, 2), mode="reflect")
+    if img.is_cuda and img.dtype == torch.bfloat16:
+        with torch.backends.cudnn.flags(enabled=False):
+            return F.conv2d(padded, k, groups=c)
+    return F.conv2d(padded, k, groups=c)
 
 
 def _lap_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:

@@ -32,8 +32,12 @@ steps, image grids every ``IMAGE_FREQ``, validation L_dt from epoch
 ``checkpoint_<epoch>.pth`` after each epoch and ``best.pth`` (weights)
 when validation improves, all under ``<OUTDIR>/<cfg name><EXP_SUFFIX>/``;
 every rank loads the same weights and train state. It runs on the card
-unless ``--device cpu`` is given, in f32 (``TRAIN.BF16`` is refused).
-The JAX tool's ``--remat`` is not ported (ROADMAP.md Queue 1 item 11).
+unless ``--device cpu`` is given, in f32, or with ``TRAIN.BF16 True`` in
+the JAX package's bf16 recipe (``MattingTrainer(compute_dtype=
+torch.bfloat16)``: f32 arithmetic on weights, state and batch rounded to
+bf16, gradients rounded to bf16, f32 master weights and moments).
+``--remat`` recomputes the VMN encoder in the backward pass (less memory,
+the same step), as the JAX tool's flag does.
 """
 from __future__ import annotations
 
@@ -84,6 +88,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "have none")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of steps 10-20 here")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize encoder activations in the backward "
+                        "pass (fits larger per-card batches)")
     p.add_argument("--val_image_batches", type=int, default=2,
                    help="val batches to dump as pred/tri/gt PNG triplets "
                         "per epoch (reference train_ddp.py:129-138)")
@@ -132,16 +139,12 @@ def main(argv=None) -> dict:
     ``ranks`` and their ``backend`` (None without a process group), this
     process's kernel ``launches`` by name (``val_launches`` those of the
     validations among them) and, on the card, its
-    ``max_memory_allocated_gib``. Under ``torch.distributed.run`` the
-    process group lives as long as the call."""
+    ``max_memory_allocated_gib``, and the last step's ``last_losses`` (the
+    global batch's, by name). Under ``torch.distributed.run`` the process
+    group lives as long as the call."""
     args = build_argparser().parse_args(argv)
     t_setup = time.perf_counter()
     cfg = load_config(args.cfg, args.opts)
-    if cfg.TRAIN.BF16:
-        raise ValueError(
-            "TRAIN.BF16: bf16 training is experimental in the JAX package "
-            "(BF16_TRAIN_GUARD.json: all_ok false) and not ported; the port "
-            "trains in f32 (ROADMAP.md Queue 1 item 11)")
     if args.deterministic:
         # cuBLAS reads its workspace setting when it starts
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -178,7 +181,10 @@ def _train(args, cfg, device, t_setup: float) -> dict:
                              lr_strategy=cfg.TRAIN.LR_STRATEGY,
                              base_lr=cfg.TRAIN.BASE_LR,
                              weight_decay=cfg.TRAIN.WEIGHT_DECAY,
-                             total_iters=total_iters, device=device)
+                             total_iters=total_iters, device=device,
+                             remat=args.remat,
+                             compute_dtype=torch.bfloat16
+                             if cfg.TRAIN.BF16 else None)
     state = trainer.init_state(torch.Generator().manual_seed(seed))
 
     start_epoch = 0
@@ -201,7 +207,7 @@ def _train(args, cfg, device, t_setup: float) -> dict:
     best_loss = 1e8
     stats = {"steps": 0, "setup_s": time.perf_counter() - t_setup,
              "step_s": 0.0, "load_wait_s": 0.0, "ranks": ranks,
-             "val_launches": {}}
+             "val_launches": {}, "last_losses": {}}
     tic0 = time.time()
     for epoch in range(start_epoch, cfg.TRAIN.TOTAL_STEPS):
         train_loader.sampler.set_epoch(epoch)
@@ -222,6 +228,8 @@ def _train(args, cfg, device, t_setup: float) -> dict:
             state, metrics = trainer.train_step(state, dev_batch)
             _sync(device)
             secs = time.perf_counter() - t_step
+            stats["last_losses"] = {k: v.item() for k, v in
+                                    metrics.items() if k != "lr"}
             stats["step_s"] += secs
             if stats["steps"] == 0:
                 stats["first_step_s"] = secs

@@ -8,6 +8,22 @@ statistics and every spectral-norm conv's ``u`` and ``v`` that run in
 training mode (the JAX package's ``mutable=list(model_state)``,
 tcvom_tpu/train/trainer.py:160-170); a frozen backbone keeps its own.
 
+``compute_dtype=torch.bfloat16`` is the JAX package's bf16 recipe
+(``TRAIN.BF16``, tcvom_tpu/train/trainer.py:102-112, :158-199): inside a
+train step the floating parameters and the batch are cast to bf16, the
+master parameters, Adam's moments and the buffers stay f32. The layers
+cast each weight up to its input's dtype (``models/layers.py``), and
+``preprocess`` promotes the network's input to f32 (the f32 mean and
+std), so the network computes in f32 on bf16-rounded weights, its
+gradients rounded to bf16 by the casts' backward; bf16 arithmetic is
+left in the data synthesis, the loss targets (FBA's Laplacian pyramid)
+and GCA's power iterations, as in JAX. No loss scaling. The other steps
+stay f32.
+
+``remat=True`` recomputes the VMN encoder in the backward pass
+(``models/vmn.py``, the JAX tool's ``--remat``): the same step, with
+less kept from the forward for the backward pass.
+
 Loss mixes:
 - video (train_ddp.py:61):   L1 + L2 + L3 + 0.5*L_dt + 0.25*L_att
 - single (train_single_ddp.py:66, pretrain_ddp.py:65): L1 + L2 + L3
@@ -92,7 +108,8 @@ class MattingTrainer:
     ``driver``: 'vmd' (FullModel_VMD, the video loss stack) or 'single'
     (FullModel: a single-frame model, or a VMN in the TAM pretrain).
     ``layers`` cuts FBA's encoder depth (widths stay the published ones;
-    the other backbones have no depth knob).
+    the other backbones have no depth knob). ``remat`` and
+    ``compute_dtype``: see the module docstring.
 
     A trainer made in a process group (``parallel.init_from_env``, of any
     size) trains data-parallel over it, each rank on its own slice of the
@@ -123,12 +140,15 @@ class MattingTrainer:
                  optimizer: str = "adam", lr_strategy: str = "const",
                  base_lr: float = 5e-4, weight_decay: float = 1e-4,
                  total_iters: int = 100_000, layers=(3, 4, 6, 3),
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", remat: bool = False,
+                 compute_dtype: torch.dtype | None = None):
         if driver not in ("vmd", "single"):
             raise ValueError(driver)
         self.cfg = task_cfg
         self.device = resolve_device(device)
         self.layers = tuple(layers)
+        self.remat = remat
+        self.compute_dtype = compute_dtype
         self.lr_schedule = make_lr_schedule(lr_strategy, base_lr, total_iters)
         self._opt_name = optimizer
         self._weight_decay = weight_decay
@@ -152,7 +172,7 @@ class MattingTrainer:
             cfg.model, agg_window=cfg.agg_window,
             agg_reduction=cfg.agg_reduction, layers=self.layers,
             device=self.device, generator=gen,
-            freeze_backbone=cfg.freeze_backbone).train()
+            freeze_backbone=cfg.freeze_backbone, remat=self.remat).train()
         dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
         drop_gen = None
         if dropouts:
@@ -190,6 +210,18 @@ class MattingTrainer:
             state.ddp = parallel.wrap(state.model)
         return state.ddp
 
+    def _in_compute_dtype(self, net: torch.nn.Module):
+        """``net`` as a function of its inputs with each floating parameter
+        cast to ``compute_dtype`` (JAX's ``_cast_compute``): the cast is
+        differentiable, so the gradients reach the f32 parameters through
+        it, rounded to bf16 where JAX's cast rounds them. DDP's hooks sit
+        on those parameters. The buffers stay as they are: the layers
+        round what they read of them and store f32."""
+        cd = self.compute_dtype
+        params = {n: p.to(cd) if p.is_floating_point() else p
+                  for n, p in net.named_parameters()}
+        return lambda *args: torch.func.functional_call(net, params, args)
+
     def _global(self, values: dict) -> dict:
         """The ranks' mean of each 0-d tensor (every rank's share of a
         ``global_batch`` loss averages to the global batch's value)."""
@@ -223,7 +255,11 @@ class MattingTrainer:
             net.train()
         radius = self._radius(state, batch, radius)
         opt.zero_grad(set_to_none=True)
-        losses, _ = self._forward(net, batch, self.cfg, radius,
+        run = net
+        if self.compute_dtype is not None:
+            batch = {k: v.to(self.compute_dtype) for k, v in batch.items()}
+            run = self._in_compute_dtype(net)
+        losses, _ = self._forward(run, batch, self.cfg, radius,
                                   global_batch=self._ranks > 1)
         total = sum(self.loss_weights[k] * v for k, v in losses.items())
         total.backward()

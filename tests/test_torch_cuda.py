@@ -480,3 +480,151 @@ def test_nccl_one_rank_step_matches_the_plain_step(dev, rng, name,
         torch.testing.assert_close(b_ddp[k], v, atol=1e-6, rtol=1e-6)
     worst = module_grad_errors(g_ddp, g_plain)[0]
     assert worst[0] <= 1e-5, worst
+
+
+def _clip_batch(rng, b: int, dev) -> dict:
+    """a, fg, bg ``[B, 5, 64, 64, .]`` f32 0..255 on ``dev``: a soft disc
+    moving over noise."""
+    yy, xx = np.mgrid[:64, :64]
+    a = np.stack([np.clip((18 - np.hypot(yy - 30 - 2 * t, xx - 32 + t)) / 6,
+                          0, 1) * 255 for t in range(5)])[None, ..., None]
+    batch = {"a": np.repeat(a, b, axis=0),
+             **{k: rng.randint(0, 256, (b, 5, 64, 64, 3)) for k in ("fg",
+                                                                  "bg")}}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("name", ["vmn_fba", "vmn_gca"])
+def test_bf16_train_step_kernels_match_plain(dev, rng, name):
+    """The bf16 recipe's train step (``compute_dtype=torch.bfloat16``, B =
+    1, S = 5, 64x64, window 3, FBA at depth (1, 1, 1, 1)) through the
+    kernels against the plain versions from the same weights, batch and
+    radius, and against a plain step whose FAM output is jittered at the
+    f32 kernel's rounding (``chip_smoke.perturbed_fam``): the kernels
+    launch on f32 q, k (the recipe's network is f32; no bf16 logits), the
+    losses within rtol 1e-4, each module's gradient within 1e-3 or twice
+    the jittered step's largest move."""
+    from chip_smoke import module_grad_errors, perturbed_fam, plain_kernels
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+
+    trainer = MattingTrainer(TaskConfig(model=name, agg_window=3), "vmd",
+                             layers=(1, 1, 1, 1), device=dev,
+                             compute_dtype=torch.bfloat16)
+    batch = _clip_batch(rng, 1, dev)
+    weights, runs, dtypes = None, [], []
+    real = fam_kernel.fam_window_logits
+
+    def recording(q, *a, **kw):
+        dtypes.append(q.dtype)
+        return real(q, *a, **kw)
+
+    for ctx in (plain_kernels(fam, edt_kernel), perturbed_fam(fam, seed=1),
+                None):
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        if weights is None:
+            if name == "vmn_gca":
+                converge_spectral_norms(state.model)
+            weights = {k: v.clone() for k, v in
+                       state.model.state_dict().items()}
+        state.model.load_state_dict(weights)
+        cuda_build.LAUNCHES.clear()
+        with ctx or pytest.MonkeyPatch.context() as mp:
+            if ctx is None:
+                mp.setattr(fam_kernel, "fam_window_logits", recording)
+            _, metrics = trainer.train_step(state, batch,
+                                            radius=torch.tensor([4]))
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.cpu() for n, p in
+                      state.model.named_parameters()},
+                     dict(cuda_build.LAUNCHES)))
+    (m_plain, g_plain, n_plain), (_, g_jit, _), (m_kern, g_kern, n_kern) = runs
+    assert not sum(n_plain.values())
+    assert n_kern == ({"edt_row": 1, "fam_window_logits": 1}
+                      if name == "vmn_fba" else {"fam_window_logits": 1})
+    assert dtypes == [torch.float32]
+    for k, v in m_plain.items():
+        np.testing.assert_allclose(m_kern[k], v, rtol=1e-4, atol=1e-7,
+                                   err_msg=k)
+    floor = module_grad_errors(g_jit, g_plain)[0][0]
+    worst = module_grad_errors(g_kern, g_plain)[0]
+    assert worst[0] <= max(1e-3, 2 * floor), (worst, floor)
+
+
+@pytest.mark.parametrize("name", ["vmn_fba", "vmn_index", "vmn_gca"])
+def test_remat_train_step_matches_plain_on_card(dev, rng, name):
+    """A remat train step on the card (the encoder recomputed in the
+    backward pass; B = 1, IndexNet 2, S = 5, 64x64) against two plain
+    steps from the same weights, batch, radius and dropout seed,
+    deterministic algorithms where torch has them: each loss, each
+    module's gradient and each buffer (BatchNorm statistics, u, v) within
+    the larger of 1e-6 relative and twice the plain steps' own spread
+    (FBA's bilinear upsampling has no deterministic backward); the
+    dropout generator where the plain step leaves it, one logits launch
+    each. (At this size the recomputation's convolution workspaces
+    outweigh the activations it frees; the peaks are compared at full
+    size by ``chip_smoke.py``'s ``train_<name>_remat``.)"""
+    from chip_smoke import module_grad_errors
+    from tcvom_tpu_torch.train.trainer import MattingTrainer
+
+    b = 2 if name == "vmn_index" else 1
+    batch = _clip_batch(rng, b, dev)
+    weights, runs = None, []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (False, False, True):
+            trainer = MattingTrainer(TaskConfig(model=name, agg_window=3),
+                                     "vmd", layers=(1, 1, 1, 1), device=dev,
+                                     remat=remat)
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            if weights is None:
+                if name == "vmn_gca":
+                    converge_spectral_norms(state.model)
+                weights = {k: v.clone() for k, v in
+                           state.model.state_dict().items()}
+            state.model.load_state_dict(weights)
+            cuda_build.LAUNCHES.clear()
+            _, metrics = trainer.train_step(state, batch,
+                                            radius=torch.full((b,), 4))
+            gen = state.dropout_generator
+            runs.append(({k: float(v) for k, v in metrics.items()},
+                         {n: p.grad.double().cpu() for n, p in
+                          state.model.named_parameters()},
+                         {n: v.double().cpu() for n, v in
+                          state.model.named_buffers()
+                          if v.is_floating_point()},
+                         None if gen is None else gen.get_state(),
+                         dict(cuda_build.LAUNCHES)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m0, g0, s0, r0, n0), (m1, g1, s1, _, _), (m2, g2, s2, r2, n2) = runs
+    assert n0 == n2 and n2["fam_window_logits"] == 1
+    for k, v in m0.items():
+        assert abs(m2[k] - v) <= max(1e-6 * abs(v), 2 * abs(m1[k] - v)), k
+    spread = {m: e for e, m in module_grad_errors(g1, g0)}
+    for e, m in module_grad_errors(g2, g0):
+        assert e <= max(1e-6, 2 * spread[m]), (m, e, spread[m])
+    for k, v in s0.items():
+        scale = v.abs().max().clamp_min(1e-30)
+        limit = max(1e-6, 2 * ((s1[k] - v).abs().max() / scale).item())
+        assert ((s2[k] - v).abs().max() / scale).item() <= limit, k
+    assert (r0 is None and r2 is None) or torch.equal(r0, r2)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_bf16_gauss_conv_on_card_matches_cpu(dev, c):
+    """The Laplacian loss's 5x5 Gauss convolution of a bf16 image (the bf16
+    recipe's targets) on the card against the CPU's, bit for bit, at every
+    pyramid level of a 64x64 and a 512x512 crop (the padded sizes 8 to
+    516). cuDNN's bf16 path gave a 1-channel 20x20 image wrong values;
+    ``ops/losses.py::_conv_gauss`` keeps bf16 off it."""
+    from tcvom_tpu_torch.ops import losses
+
+    g = torch.Generator().manual_seed(0)
+    for hw in (4, 8, 16, 32, 64, 128, 256, 512):
+        x = torch.rand(2, c, hw, hw, generator=g).bfloat16()
+        for scale in (1.0, 4.0):
+            want = losses._conv_gauss(x, scale)
+            got = losses._conv_gauss(x.to(dev), scale)
+            assert got.dtype == torch.bfloat16
+            assert torch.equal(got.cpu(), want), (hw, scale)

@@ -203,6 +203,24 @@ def test_train_cli_needs_a_card_unless_asked_for_the_cpu(trees, tmp_path):
             train.main(argv)
 
 
-def test_train_cli_refuses_bf16(trees, tmp_path):
-    with pytest.raises(ValueError, match="BF16"):
-        train.main(_video_argv(trees, tmp_path, "TRAIN.BF16", "true"))
+def test_train_cli_refuses_bf16(trees, tmp_path, monkeypatch):
+    """(Named when the tool refused TRAIN.BF16.) TRAIN.BF16 reaches the
+    trainer as ``compute_dtype=torch.bfloat16`` and ``--remat`` as
+    ``remat=True``; by default neither is on. A run of both is
+    tests/test_torch_train_remat.py's."""
+    made = []
+
+    class Made(Exception):
+        pass
+
+    def capture(*args, **kw):
+        made.append(kw)
+        raise Made
+
+    monkeypatch.setattr(train, "MattingTrainer", capture)
+    for extra, flags in (((), ()), (("TRAIN.BF16", "true"), ("--remat",))):
+        argv = _video_argv(trees, tmp_path, *extra)
+        with pytest.raises(Made):
+            train.main(argv[:2] + list(flags) + argv[2:])
+    assert [(kw["compute_dtype"], kw["remat"]) for kw in made] == [
+        (None, False), (torch.bfloat16, True)]
