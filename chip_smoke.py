@@ -98,7 +98,15 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    launches; the one-process runs here take a fresh process's TF32
    settings, which the tools' subprocesses keep: cuDNN's convolutions in
    TF32); the DDP step's ms beside the plain step's, each rank's peak
-   memory;
+   memory; then pred_vmn_space (check_fam_band, pred_vmn_space_phase):
+   kernel D at a --space 2 band of the 1088x1920 grid plus its halo,
+   [2, 71, 240, 256] and [2, 72, 240, 256], bit for bit the whole grid's
+   call cropped, timed; pred_vmn --space 2 --model fba and --model dim on
+   two gloo ranks of the one card against the one-process sweeps (PNGs
+   within one level and >= 99.9 % identical, loss.log within rtol 1e-4;
+   DIM within twice what a rounding-size jitter of its weights moves its
+   one-process sweep where that is more; each rank's launches, band, step
+   and peak, the band exchanges a sample);
 16. train_<name>_bf16, train_<name>_remat (fba, dim, index, gca, as in
    8 and 13) and train_cli_bf16_remat: TRAIN.BF16 (the JAX recipe: f32
    arithmetic on bf16-rounded weights, state and batch) over five steps,
@@ -785,7 +793,8 @@ def pred_vmn_phase(model, tmp, cuda_build, profile_path=None):
     ``model``'s weights: f32, B = 1, S = 3, 1088x1920, medium trimaps; then
     its parts apart: reading one sample, and the evaluation step on it
     (and a profile of one step with ``profile_path``). Returns (launches,
-    the tree, the predictions' folder)."""
+    the tree, the predictions' folder, the sweep's seconds by phase with
+    its peak device memory under ``peak_gib``)."""
     from tcvom_tpu_torch.data.vmd import VideoMattingDataset
     from tcvom_tpu_torch.infer.predict import (TRIMAP_DILATION,
                                                make_vmd_eval_step)
@@ -800,6 +809,7 @@ def pred_vmn_phase(model, tmp, cuda_build, profile_path=None):
     save_weights(model, str(ckpt))
     setup_s = time.perf_counter() - t0
     cuda_build.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
     t0, sweep = time.perf_counter(), {}
     losses = pred_vmn.main(["--model", "fba", "--data", str(root), "--load",
                             str(ckpt), "--trimap", "medium", "--save",
@@ -807,6 +817,7 @@ def pred_vmn_phase(model, tmp, cuda_build, profile_path=None):
                             "--batch", "1", "--n_threads", "2"], sweep)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
+    sweep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     counts = dict(cuda_build.LAUNCHES)
     written = sorted(p.name for p in (save / "clip_b").iterdir())
 
@@ -834,7 +845,7 @@ def pred_vmn_phase(model, tmp, cuda_build, profile_path=None):
     if written != [f"{i:05d}_{k}.png" for i in range(4)
                    for k in ("pred", "tri")]:
         fail(f"pred_vmn wrote {written}")
-    return counts, root, save
+    return counts, root, save, sweep
 
 
 def calc_metric_phase(root, save):
@@ -1908,6 +1919,13 @@ def train_ddp_phases(tmp) -> dict:
     return launches
 
 
+def read_losses(folder) -> dict:
+    """loss.log of a pred_vmn sweep."""
+    return {k: float(v) for k, v in (
+        line.split(": ") for line in
+        (folder / "loss.log").read_text().splitlines() if line)}
+
+
 def pred_vmn_ddp_phase(tmp, root) -> dict:
     """tools/pred_vmn.py as ``pred_vmn`` ran it (FBA, the fake clip's 4
     samples, B = 1, 1088x1920, no loader workers), on two gloo ranks of
@@ -1932,13 +1950,7 @@ def pred_vmn_ddp_phase(tmp, root) -> dict:
     names = sorted(p.name for p in (save / "clip_b").iterdir())
     differ = [n for n in names if (save / "clip_b" / n).read_bytes()
               != (out / "clip_b" / n).read_bytes()]
-
-    def losses(folder):
-        return {k: float(v) for k, v in (
-            line.split(": ") for line in
-            (folder / "loss.log").read_text().splitlines() if line)}
-
-    got, want = losses(out), losses(save)
+    got, want = read_losses(out), read_losses(save)
     rel = max(abs(got[k] - v) / max(abs(v), 1e-30) for k, v in want.items())
     ranks = [json.loads((counts_dir / f"rank_{r}.json").read_text())
              for r in range(2)]
@@ -1956,25 +1968,252 @@ def pred_vmn_ddp_phase(tmp, root) -> dict:
     return counts
 
 
-def tool_rank(tool: str, counts_dir: str | None, argv: list) -> None:
+# The relative jitter of DIM's weights whose move sets the limits of its
+# pred_vmn --space check: rounding's size (f32 convolutions in another
+# order move DIM's pool inputs by ~1e-6 relative; its argmax pools then
+# flip near-ties, as the band split's other cuDNN algorithms do)
+DIM_JITTER = 1e-6
+
+
+def check_fam_band(fam, fam_kernel) -> dict:
+    """Kernel D at ``pred_vmn --space 2``'s band of the 1088x1920 grid
+    (FBA's and DIM's FAM, C = 256): each rank's [2, 68, 240, 256] band and
+    its halo on its inner side, as ``ops/fam.py::fam_attention`` builds it
+    (k's extra rows the other band's, q's and the mask's zeros): 3 rows
+    below the first band, [2, 71, 240, 256], and 4 above the second (an
+    even count keeps the rows' parity in the kernel's two-row warp
+    tiles), [2, 72, 240, 256]. For both bands the call is held bit for bit
+    against the call on the whole grid, cropped, and the first band's
+    against the plain version (1e-5); timed there. Returns its row."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(5)
+    shape = (2, H // 8, W // 8, 256)
+    q, k = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+            for _ in range(2))
+    m = torch.from_numpy((rng.rand(*shape[:3], 1) > 0.4).astype(
+        np.float32)).cuda()
+    whole = fam_kernel.fam_window_logits(q, k, m, WINDOW)
+    r, h = WINDOW // 2, shape[1] // 2
+    for lo, top, bottom in ((0, 0, r), (h, r + r % 2, 0)):
+        kb = k[:, lo - top:lo + h + bottom].contiguous()
+        qb, mb = (F.pad(t[:, lo:lo + h], (0, 0, 0, 0, top, bottom))
+                  for t in (q, m))
+        got = fam_kernel.fam_window_logits(qb, kb, mb, WINDOW)
+        for what, g, wt in zip(("out", "logits"), got, whole):
+            if not torch.equal(g[:, top:top + h], wt[:, lo:lo + h]):
+                fail(f"fam_window_logits on band {lo}: {what} differs from "
+                     "the whole grid's")
+        if lo == 0:
+            band = (qb, kb, mb)
+    want = fam.fam_attention_ref(*band, WINDOW)
+    got = fam_kernel.fam_window_logits(*band, WINDOW)
+    err = max((g - wt).abs().max().item() for g, wt in zip(got, want))
+    if err > 1e-5:
+        fail(f"fam_window_logits at the band shape off the plain version "
+             f"by {err}")
+    ms = time_ms(lambda: fam_kernel.fam_window_logits(*band, WINDOW), 20)
+    plain_ms = time_ms(lambda: fam.fam_attention_ref(*band, WINDOW), 3)
+    b_ms, b_by = bound(*fam_counts(band[2], 256, WINDOW, logits=True),
+                       torch.float32)
+    res = dict(shape=list(band[0].shape), dtype=str(torch.float32),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    emit(phase="time", kernel="fam_window_logits", what="space band",
+         bit_equal_to_whole=True, **res)
+    return res
+
+
+def png_diffs(want_dir, got_dir) -> dict:
+    """Per PNG of ``want_dir``: (the largest level difference, the share
+    of identical pixels) against the same file of ``got_dir``."""
+    from tcvom_tpu_torch.utils.imageio import IMREAD_GRAYSCALE, imread
+
+    out = {}
+    for p in sorted(want_dir.iterdir()):
+        want, got = (imread(str(d / p.name), IMREAD_GRAYSCALE).astype(int)
+                     for d in (want_dir, got_dir))
+        diff = np.abs(got - want)
+        out[p.name] = (int(diff.max()), float((diff == 0).mean()))
+    return out
+
+
+def pred_vmn_space_phase(tmp, root, fba_save, fba_sweep) -> dict:
+    """``pred_vmn --space 2`` (FBA and DIM, f32, the fake clip's 4 samples,
+    B = 1, 1088x1920, window 7, no loader workers) on two gloo ranks of
+    the one card, each computing one 544-row band of every frame, against
+    the one-process sweep of the same arguments: FBA's is ``pred_vmn``'s
+    own (``fba_save``, its seconds and peak ``fba_sweep``), DIM's (seed-0
+    weights calibrated on the clip's first sample) runs here. Both sides
+    without TF32 (this process's setting; the ranks' ``--no_tf32``).
+    Holds each PNG within one level and >= 99.9 % identical, loss.log
+    within rtol 1e-4; DIM within twice what its rounding moves it where
+    that is more (at least one level, 99.9 %, 1e-4): a change of cuDNN's
+    algorithms (a band's shape is not the frame's) flips near-ties of its
+    2x2 argmax pools, so its limits are set in the same run by the
+    one-process sweep again with every weight moved by a relative
+    ``DIM_JITTER``. Holds each rank's launches (``fam_window_logits`` 4,
+    ``edt_row`` 4 for FBA and 0 for DIM); prints each rank's band, kernel
+    D's shapes, step seconds a sample and peak beside the one-process
+    sweep's, and the band exchanges a sample. Returns both ranks' launches
+    by model."""
+    from tcvom_tpu_torch.data.vmd import VideoMattingDataset
+    from tcvom_tpu_torch.infer.predict import TRIMAP_DILATION
+    from tcvom_tpu_torch.models.full_model import TaskConfig, forward_vmd
+    from tcvom_tpu_torch.models.registry import (build_model,
+                                                 calibrate_random_weights)
+    from tcvom_tpu_torch.tools import pred_vmn
+    from tcvom_tpu_torch.utils.checkpoint import save_weights
+
+    samples = 4
+    dataset = VideoMattingDataset(str(root), (H, W), "val",
+                                  precomputed_val=str(root), sample_length=3,
+                                  no_flow=True)
+    batch = {k: torch.from_numpy(np.asarray(v))[None].float().cuda()
+             for k, v in dataset[(0, 0)].items() if k in ("a", "fg", "bg")}
+    model = build_model("vmn_dim", agg_window=WINDOW,
+                        generator=torch.Generator().manual_seed(0))
+    cfg = TaskConfig(model="vmn_dim", agg_window=WINDOW,
+                     dilate_radius=TRIMAP_DILATION["medium"])
+    calibrate_random_weights(model, lambda: forward_vmd(model, batch, cfg))
+    save_weights(model, str(tmp / "vmn_dim_space.pth"))
+    del model, batch
+    torch.cuda.empty_cache()
+
+    def args(model, ckpt, save):
+        return ["--model", model, "--data", str(root), "--load", str(ckpt),
+                "--trimap", "medium", "--agg_window", str(WINDOW),
+                "--image_shape", str(H), str(W), "--batch", "1",
+                "--n_threads", "0", "--save", str(save)]
+
+    dim_save, dim_sweep = tmp / "pred_vmn_dim_one", {}
+    torch.cuda.reset_peak_memory_stats()
+    pred_vmn.main(args("dim", tmp / "vmn_dim_space.pth", dim_save),
+                  dim_sweep)
+    dim_sweep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # DIM's rounding reference: the one-process sweep again with every
+    # weight moved by a relative DIM_JITTER (seeded)
+    sd = torch.load(tmp / "vmn_dim_space.pth")
+    gen = torch.Generator().manual_seed(6)
+    torch.save({k: v * (1 + DIM_JITTER * torch.randn(v.shape, generator=gen))
+                if k.endswith(("weight", "bias")) else v
+                for k, v in sd.items()}, tmp / "vmn_dim_jitter.pth")
+    jitter_save = tmp / "pred_vmn_dim_jitter"
+    pred_vmn.main(args("dim", tmp / "vmn_dim_jitter.pth", jitter_save))
+    pngs = png_diffs(dim_save / "clip_b", jitter_save / "clip_b")
+    got, want = read_losses(jitter_save), read_losses(dim_save)
+    jitter = dict(level=max(d for d, _ in pngs.values()),
+                  identical=min(f for _, f in pngs.values()),
+                  loss_rel=max(abs(got[k] - v) / max(abs(v), 1e-30)
+                               for k, v in want.items()))
+    limits = {"fba": (1, 0.999, 1e-4),
+              "dim": (max(1, 2 * jitter["level"]),
+                      min(0.999, 1 - 2 * (1 - jitter["identical"])),
+                      max(1e-4, 2 * jitter["loss_rel"]))}
+    emit(phase="pred_vmn_space_dim_rounding", jitter=DIM_JITTER,
+         png_worst_level=jitter["level"],
+         png_identical_least=jitter["identical"],
+         loss_rel_err_worst=jitter["loss_rel"], limits=limits["dim"])
+    counts = {}
+    for model, ckpt, save, sweep in (
+            ("fba", tmp / "vmn_fba.pth", fba_save, fba_sweep),
+            ("dim", tmp / "vmn_dim_space.pth", dim_save, dim_sweep)):
+        out, counts_dir = (tmp / f"pred_vmn_space_{model}",
+                           tmp / f"pred_vmn_space_{model}_launches")
+        secs = tool_run(torchrun(2, "chip_smoke") + [
+            "--tool", "pred_vmn", "--launches", str(counts_dir), "--no_tf32",
+            "--dist_backend", "gloo", "--space", "2",
+            *args(model, ckpt, out)], f"pred_vmn --space 2 --model {model}")
+        ranks = []
+        for r in range(2):
+            st = json.loads((counts_dir / f"rank_{r}_stats.json").read_text())
+            ranks.append(dict(
+                band=st["band"],
+                launches=json.loads((counts_dir / f"rank_{r}.json"
+                                     ).read_text()),
+                fam_shapes=sorted({tuple(s) for s in st["fam_shapes"]}),
+                step_s_per_sample=st["step"] / samples,
+                peak_gib=st["peak_gib"],
+                exchanges_per_sample={k: [c / samples, b / samples]
+                                      for k, (c, b) in
+                                      st["exchanges"].items()}))
+        pngs = png_diffs(save / "clip_b", out / "clip_b")
+        got, want = read_losses(out), read_losses(save)
+        rel = max(abs(got[k] - v) / max(abs(v), 1e-30)
+                  for k, v in want.items())
+        emit(phase="pred_vmn_space", model=model, space=2, backend="gloo",
+             seconds=secs, ranks=ranks,
+             one_process=dict(step_s_per_sample=sweep["step"] / samples,
+                              peak_gib=sweep["peak_gib"]),
+             png_worst_level=max(d for d, _ in pngs.values()),
+             png_identical_least=min(f for _, f in pngs.values()),
+             files=len(pngs), losses=got, loss_rel_err_worst=rel,
+             limits=limits[model])
+        level, identical, rtol = limits[model]
+        bad = {n: v for n, v in pngs.items()
+               if v[0] > level or v[1] < identical}
+        if len(pngs) != 2 * samples or bad or sorted(got) != sorted(want) \
+                or rel > rtol:
+            fail(f"pred_vmn --space 2 --model {model}: PNGs {bad}, losses "
+                 f"{got} against {want}")
+        want_counts = {"fam_window_logits": samples,
+                       "edt_row": samples if model == "fba" else 0}
+        if any(rk["launches"].get(k, 0) != n for rk in ranks
+               for k, n in want_counts.items()):
+            fail(f"pred_vmn --space 2 --model {model}: launches "
+                 f"{[rk['launches'] for rk in ranks]}, want {want_counts} "
+                 "on each rank")
+        counts[model] = {k: sum(rk["launches"].get(k, 0) for rk in ranks)
+                         for k in want_counts}
+    return counts
+
+
+def tool_rank(tool: str, counts_dir: str | None, argv: list,
+              tf32: bool = True) -> None:
     """``--tool``: ``tcvom_tpu_torch.tools.<tool>.main(argv)`` in this
     process (a rank, under ``torch.distributed.run``), from zero launch
     counts; ``tools.train`` validating from its first epoch. With
     ``counts_dir``, the process's kernel launches then go to
-    ``<counts_dir>/rank_<RANK>.json``."""
+    ``<counts_dir>/rank_<RANK>.json``, and for ``pred_vmn`` its sweep's
+    stats (seconds by phase, the band and its exchanges under
+    ``--space``), its peak device memory and the shapes of q its logits
+    kernel took to ``<counts_dir>/rank_<RANK>_stats.json``. ``tf32``
+    False (``--no_tf32``): cuDNN's convolutions and cuBLAS's matmuls
+    without TF32, as this script's own runs compute."""
     import importlib
 
-    from tcvom_tpu_torch.ops import cuda_build
+    from tcvom_tpu_torch.ops import cuda_build, fam_kernel
 
+    if not tf32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     mod = importlib.import_module(f"tcvom_tpu_torch.tools.{tool}")
     if tool == "train":
         mod.VAL_FROM_EPOCH = 0
     cuda_build.LAUNCHES.clear()
-    mod.main(argv)
+    if tool != "pred_vmn":
+        mod.main(argv)
+    else:
+        stats, shapes = {}, []
+        logits = fam_kernel.fam_window_logits
+
+        def recording(q, *a, **kw):
+            shapes.append(list(q.shape))
+            return logits(q, *a, **kw)
+
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(fam_kernel, "fam_window_logits", recording):
+            mod.main(argv, stats)
+        stats.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     fam_shapes=shapes)
     if counts_dir:
         os.makedirs(counts_dir, exist_ok=True)
-        Path(counts_dir, f"rank_{os.environ.get('RANK', '0')}.json"
-             ).write_text(json.dumps(dict(cuda_build.LAUNCHES)))
+        rank = os.environ.get("RANK", "0")
+        Path(counts_dir, f"rank_{rank}.json").write_text(
+            json.dumps(dict(cuda_build.LAUNCHES)))
+        if tool == "pred_vmn":
+            Path(counts_dir, f"rank_{rank}_stats.json").write_text(
+                json.dumps(stats))
 
 
 def stream_tflop(model, in_channels: int) -> tuple[float, float]:
@@ -2315,10 +2554,14 @@ def main():
                          "validates from its first epoch")
     ap.add_argument("--launches", metavar="DIR",
                     help="with --tool: write this rank's kernel launches "
-                         "to DIR/rank_<RANK>.json")
+                         "to DIR/rank_<RANK>.json (and pred_vmn's stats "
+                         "to DIR/rank_<RANK>_stats.json)")
+    ap.add_argument("--no_tf32", action="store_true",
+                    help="with --tool: no TF32 in cuDNN or cuBLAS, as this "
+                         "script's own runs")
     args, rest = ap.parse_known_args()
     if args.tool:
-        tool_rank(args.tool, args.launches, rest)
+        tool_rank(args.tool, args.launches, rest, tf32=not args.no_tf32)
         return
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
@@ -2440,8 +2683,9 @@ def main():
     tmp = Path(tmpdir.name)
     pt_counts = pred_test_phase(model, tmp, step_ms, fam, edt_kernel,
                                 cuda_build)
-    vmn_counts, root, save = pred_vmn_phase(model, tmp, cuda_build,
-                                            args.profile)
+    vmn_counts, root, save, vmn_sweep = pred_vmn_phase(model, tmp,
+                                                       cuda_build,
+                                                       args.profile)
     del model
     torch.cuda.empty_cache()
     calc_metric_phase(root, save)
@@ -2494,6 +2738,8 @@ def main():
     # -- 15. data-parallel training and pred_vmn under torch.distributed.run --
     ddp_counts = train_ddp_phases(tmp)
     ddp_counts["pred_vmn_ddp"] = pred_vmn_ddp_phase(tmp, root)
+    band_res = check_fam_band(fam, fam_kernel)
+    space_counts = pred_vmn_space_phase(tmp, root, save, vmn_sweep)
 
     # -- 16. TRAIN.BF16 and --remat of each video trainer, and the tool -----
     bf16_counts, remat_counts = {}, {}
@@ -2604,6 +2850,15 @@ def main():
         dict(logits_c, path="pred_vmn_ddp", replaces=val_d,
              launches=ddp_counts["pred_vmn_ddp"]["fam_window_logits"],
              **logits_res[(2, 136, 240, 256)])]
+    # pred_vmn --space 2: both ranks' launches; kernel A on the whole
+    # frame on each rank, kernel D on each rank's band and its halo
+    kernels += [
+        dict(edt, path="pred_vmn_space_fba",
+             launches=space_counts["fba"]["edt_row"],
+             **edt_train_res["pred_vmn"])] + [
+        dict(logits_c, path=f"pred_vmn_space_{name}", replaces=val_d,
+             launches=space_counts[name]["fam_window_logits"], **band_res)
+        for name in ("fba", "dim")]
     kernels += [dict(edt, path=path, **r) for path, r in adobe_res.items()]
     train_res = {"fba": logits_res[(6, 64, 64, 256)],
                  "dim": train_width_res[(24, 64, 64, 256)],

@@ -38,18 +38,20 @@ def _upload_batch(model, batch: dict) -> dict:
             for k in ("a", "fg", "bg")}
 
 
-def make_vmd_eval_step(model, cfg: FM.TaskConfig):
+def make_vmd_eval_step(model, cfg: FM.TaskConfig, bands=None):
     """A step through FullModel_VMD without gradient: ``step(batch,
     radius=None)`` with ``a``, ``fg``, ``bg`` ``[B, S, H, W, .]`` (numpy or
     tensors, 0..255) returns (losses, center-frame alphas ``[B, H, W, 1]``,
     the center trimap visualization: 128/255 in the unknown region, the
-    ground truth elsewhere)."""
+    ground truth elsewhere). ``bands`` (``parallel.space.Bands`` of H):
+    the network runs on this rank's band of every frame, the results are
+    whole (``forward_vmd``)."""
 
     @torch.inference_mode()
     def step(batch: dict, radius=None):
         model.eval()
         batch = _upload_batch(model, batch)
-        losses, aux = FM.forward_vmd(model, batch, cfg, radius)
+        losses, aux = FM.forward_vmd(model, batch, cfg, radius, bands=bands)
         pre = aux["pre"]
         c = batch["a"].shape[1] // 2
         tris_vis = torch.where(pre["trimasks"] > 0.5, 128.0 / 255.0,

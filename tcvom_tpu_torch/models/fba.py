@@ -17,6 +17,7 @@ from tcvom_tpu_torch.models.layers import (Conv2d, EncoderDecoder,
                                            at_least_f32)
 from tcvom_tpu_torch.ops.image import (adaptive_avg_pool, max_pool,
                                        resize_bilinear)
+from tcvom_tpu_torch.parallel import space
 
 
 class Bottleneck(nn.Module):
@@ -139,13 +140,28 @@ class FBADecoder(nn.Module):
             out["extras"] = enc["extras"]
         return out
 
+    @staticmethod
+    def _pyramid(branch: nn.Sequential, conv5: torch.Tensor) -> torch.Tensor:
+        """One PPM branch, resized to ``conv5``'s grid. In band mode
+        (``parallel.space``) the pooled map is whole on every rank: the
+        branch's conv and GroupNorm run on it as on one process, it is
+        resized to the frame's OS-8 grid and this band's rows are kept."""
+        bands = space.current()
+        if bands is None:
+            return resize_bilinear(branch(conv5), conv5.shape[-2:])
+        pooled = branch[0](conv5)
+        with space.whole():
+            y = resize_bilinear(branch[1:](pooled),
+                                (bands.span(conv5.shape[-2])[2],
+                                 conv5.shape[-1]))
+        return bands.crop(y, -2)
+
     def forward(self, enc: dict, mode: str = "full", x=None) -> torch.Tensor:
         conv_out = enc["conv_out"]
         img, two_chan_trimap = enc["extras"]
         if mode in ("full", "extract"):
             conv5 = conv_out[-1]
-            size = conv5.shape[-2:]
-            parts = [conv5] + [resize_bilinear(branch(conv5), size)
+            parts = [conv5] + [self._pyramid(branch, conv5)
                                for branch in self.ppm]
             x = self.conv_up1(torch.cat(parts, dim=1))        # OS=8
             if mode == "extract":

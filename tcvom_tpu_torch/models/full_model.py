@@ -26,6 +26,7 @@ from tcvom_tpu_torch.models.layers import weak
 from tcvom_tpu_torch.ops import losses as L
 from tcvom_tpu_torch.ops.distance import trimap_transform
 from tcvom_tpu_torch.ops.image import avg_pool, dilate_by_radius, unfold
+from tcvom_tpu_torch.parallel import space
 
 IMG_SCALE = 1.0 / 255.0
 IMG_MEAN = (0.485, 0.456, 0.406)
@@ -323,9 +324,19 @@ def _cl(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 1, 3, 4, 2)
 
 
-def _run_vmn(model, pre, cfg: TaskConfig):
+def _run_vmn(model, pre, cfg: TaskConfig, bands=None):
     """The full-clip VMN on the preprocessed clip; channels-last results
-    (preds, attb, attf, small_mask). Only FBA's head takes extras."""
+    (preds, attb, attf, small_mask). Only FBA's head takes extras.
+
+    ``bands`` (``parallel.space.Bands``): the network runs on this rank's
+    band of each frame of the whole preprocessed clip, and its results are
+    gathered whole on every rank of the space group."""
+    if bands is not None:
+        band = {k: bands.crop(pre[k], 2)
+                for k in ("imgs", "tris", "trimasks", "scaled_imgs")}
+        with space.banded(bands):
+            outs = _run_vmn(model, band, cfg)
+        return tuple(bands.gather_bands(t, 2) for t in outs)
     inputs = torch.cat([pre["imgs"], pre["tris"]], dim=-1)
     extras = ((_cf(pre["scaled_imgs"]), _cf(pre["tris"][..., -2:]))
               if cfg.method == "fba" else None)
@@ -390,15 +401,18 @@ def forward_single(model, batch: dict, cfg: TaskConfig, radius=None,
 
 
 def forward_vmd(model, batch: dict, cfg: TaskConfig, radius=None,
-                global_batch: bool = False):
+                global_batch: bool = False, bands=None):
     """FullModel_VMD forward, the full video loss stack
     (models/model.py:258-357). ``batch``: a, fg, bg ``[B, S, H, W, .]``
     in [0, 255] on the model's device; ``radius``: see :func:`make_trimap`;
     ``global_batch``: this rank's share of the losses of every rank's
-    batch. Returns (losses {L1, L2, L3, L_dt, L_att}, aux)."""
+    batch; ``bands`` (inference only): the ranks of a space group each
+    run the network on one band of every frame (``parallel.space``), the
+    preprocessing and the losses whole on each. Returns (losses {L1, L2,
+    L3, L_dt, L_att}, aux)."""
     s = batch["a"].shape[1]
     pre = preprocess(batch["a"], batch["fg"], batch["bg"], cfg, radius)
-    preds, attb, attf, small_mask = _run_vmn(model, pre, cfg)
+    preds, attb, attf, small_mask = _run_vmn(model, pre, cfg, bands)
     l1, l2, l3, alphas, comps, fs, bs = _losses(cfg, preds, pre, 1, s - 1,
                                                 global_batch)
     l_att = attention_loss(cfg, attb, attf, small_mask, pre["scaled_gts"],

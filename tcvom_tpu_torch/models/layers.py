@@ -31,6 +31,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from tcvom_tpu_torch import parallel
+from tcvom_tpu_torch.parallel import space
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -118,34 +119,76 @@ def _like(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
     return None if p is None else p.to(x.dtype)
 
 
+def _banded_conv(conv: nn.Conv2d, x: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor | None,
+                 bands: space.Bands) -> torch.Tensor:
+    """``conv``'s convolution of this rank's band of a band-split ``x``
+    (``parallel.space``): the rows its band of the output reads, halos
+    from the other bands included, with no padding on H."""
+    x = bands.window(x, conv.kernel_size[0], conv.stride[0],
+                     conv.dilation[0], conv.padding[0])
+    return F.conv2d(x, weight, bias, conv.stride, (0, conv.padding[1]),
+                    conv.dilation, conv.groups)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose weight and bias are cast to the input's dtype
-    (the JAX package's ``nn.Conv`` promotes them alike)."""
+    (the JAX package's ``nn.Conv`` promotes them alike). Band-aware
+    (``parallel.space``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, _like(self.weight, x),
-                                  _like(self.bias, x))
+        weight, bias = _like(self.weight, x), _like(self.bias, x)
+        bands = space.current()
+        if bands is not None:
+            return _banded_conv(self, x, weight, bias, bands)
+        return self._conv_forward(x, weight, bias)
 
 
 class WSConv2d(nn.Conv2d):
     """Weight-standardized conv (FBA; reference models/FBA/layers_WS.py).
     The standardized weight, in the parameter's dtype, is cast to the
-    input's (tcvom_tpu/models/layers.py:251)."""
+    input's (tcvom_tpu/models/layers.py:251). Band-aware
+    (``parallel.space``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, ws_standardize(self.weight).to(x.dtype),
-                        _like(self.bias, x), self.stride, self.padding,
+        weight = ws_standardize(self.weight).to(x.dtype)
+        bias = _like(self.bias, x)
+        bands = space.current()
+        if bands is not None:
+            return _banded_conv(self, x, weight, bias, bands)
+        return F.conv2d(x, weight, bias, self.stride, self.padding,
                         self.dilation, self.groups)
 
 
 class GroupNorm(nn.GroupNorm):
     """``nn.GroupNorm`` whose affine is cast to the input's dtype. PyTorch
     keeps the statistics in f32 for bf16 inputs, as the JAX package's
-    ``_GroupNorm`` does."""
+    ``_GroupNorm`` does.
+
+    In band mode (``parallel.space``) each (sample, group) mean and
+    variance is over every band: the sums and counts of this rank's band
+    summed over the bands, the mean first and then the centred squares
+    (two passes, for f32 at one-process accuracy), in at least f32."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bands = space.current()
+        if bands is not None:
+            return self._banded(x, bands)
         return F.group_norm(x, self.num_groups, _like(self.weight, x),
                             _like(self.bias, x), self.eps)
+
+    def _banded(self, x: torch.Tensor, bands: space.Bands) -> torch.Tensor:
+        xf = at_least_f32(x).reshape(x.shape[0], self.num_groups, -1)
+        count = xf.new_full(xf.shape[:2] + (1,), xf.shape[-1])
+        sums = bands.sum_over_bands(torch.cat([xf.sum(-1, keepdim=True), count], -1))
+        count = sums[..., 1:]
+        xc = xf - sums[..., :1] / count
+        var = bands.sum_over_bands(xc.square().sum(-1, keepdim=True)) / count
+        y = (xc * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = (y * self.weight.to(y.dtype).view(shape)
+             + self.bias.to(y.dtype).view(shape))
+        return y.to(x.dtype)
 
 
 def GroupNorm32(channels: int) -> GroupNorm:

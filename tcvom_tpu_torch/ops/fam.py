@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from tcvom_tpu_torch.ops import fam_kernel
+from tcvom_tpu_torch.parallel import space
 
 
 def _shifts(window: int):
@@ -84,7 +85,37 @@ def fam_attention(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
     logits-writing kernel through :class:`FamAttention` when the logits are
     needed or a gradient must flow to q or k, else the inference kernel
     (``csrc/fam_window.cu`` for both). Returns ``(out, logits)``; logits is
-    None unless ``need_logits``."""
+    None unless ``need_logits``.
+
+    In band mode (``parallel.space``; ``[B, h, W, .]`` this rank's band)
+    the kernel, which reads keys outside its array as logit 0, is given
+    the band and ``window // 2`` more rows below it and ``window // 2``
+    rounded up to even above it (on its inner sides): k's are the
+    neighbouring band's real rows, q's and the mask's zeros (their outputs
+    are cropped); at the frame's edges nothing is added, and the kernel's
+    own zero keys apply. The even top keeps each row's parity, which sets
+    the order of its sums in the kernel's tiles of two rows a warp
+    (``csrc/fam_window.cu``). The output and logits are cropped back to
+    the band: bit for bit the rows of the call on the whole frame."""
+    bands = space.current()
+    if bands is None:
+        return _dispatch(q, k, mask, window, need_logits)
+    r, h = window // 2, q.shape[1]
+    lo, hi, height = bands.span(h)
+    above = r + r % 2
+    top, bottom = above * (lo > 0), r * (hi < height)
+    k = bands.rows(k.movedim(1, 2), lo - above, hi + r).movedim(2, 1)
+    k = k[:, above - top:above + h + bottom].contiguous()
+    q, mask = (F.pad(t, (0, 0, 0, 0, top, bottom)) for t in (q, mask))
+    out, logits = _dispatch(q, k, mask, window, need_logits)
+    return (out[:, top:top + h],
+            None if logits is None else logits[:, top:top + h])
+
+
+def _dispatch(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+              window: int, need_logits: bool
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`fam_attention` on whole frames."""
     if q.device.type == "cpu":
         out, logits = fam_attention_ref(q, k, mask, window)
         return out, (logits if need_logits else None)

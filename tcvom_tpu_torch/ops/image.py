@@ -7,6 +7,14 @@ operators: ``F.interpolate``, ``F.max_pool2d``, ``F.adaptive_avg_pool2d``,
 argmax pool keeps its index as the in-window position (uint8), as the JAX
 one does, not as torch's flat int64 (:func:`max_pool_argmax_2x2`).
 
+In band mode (``parallel.space``: the input is this rank's horizontal
+band of each frame) the resizes and pools that couple rows take their
+halos from the other bands: :func:`max_pool` and :func:`resize_bilinear`
+(x2) read rows across the band's edges, :func:`adaptive_avg_pool` sums
+its bins over every band and returns the whole pooled map; the nearest
+resize and the 2x2 argmax pool and unpool stay within the band, which
+they check.
+
 The functions of the training stack (:func:`avg_pool`, :func:`unfold`,
 :func:`image_gradient`, :func:`dilate_by_radius`) and of the metrics
 (:func:`coords_grid`, :func:`grid_sample`) take channels-last
@@ -20,27 +28,87 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from tcvom_tpu_torch.parallel import space
+
 
 def resize_bilinear(x: torch.Tensor, size: Sequence[int],
                     align_corners: bool = False) -> torch.Tensor:
-    return F.interpolate(x, size=tuple(int(s) for s in size), mode="bilinear",
-                         align_corners=align_corners)
+    """Bilinear resize of ``[N, C, H, W]`` to ``size``. In band mode only
+    the x2 upsampling of a band (``size`` twice the band's rows): one
+    source row above and one below from the neighbouring bands, resized,
+    then cropped, which the exact scale makes exact; rows are clamped
+    only at the frame's edges."""
+    size = tuple(int(s) for s in size)
+    bands = space.current()
+    if bands is None:
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=align_corners)
+    h = x.shape[-2]
+    if align_corners or size[0] != 2 * h:
+        raise ValueError(f"band mode resizes a band x2 only, not {h} rows "
+                         f"to {size[0]}")
+    lo, hi, height = bands.span(h)
+    top, bottom = int(lo > 0), int(hi < height)
+    ext = bands.rows(x, lo - 1, hi + 1)[..., 1 - top:h + 1 + bottom, :]
+    y = F.interpolate(ext, size=(2 * (h + top + bottom), size[1]),
+                      mode="bilinear", align_corners=False)
+    return y[..., 2 * top:2 * (top + h), :]
+
+
+def _local(x: torch.Tensor, rows: int) -> None:
+    """In band mode: that ``x`` and a result of ``rows`` rows are both
+    bands (the scale between them a power of two, and the band's edges on
+    whole rows of both), so that a nearest resize or 2x2 pool between
+    them reads only its own band; :meth:`Bands.scale` raises if not."""
+    bands = space.current()
+    if bands is not None:
+        bands.scale(x.shape[-2])
+        bands.scale(rows)
 
 
 def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
-    """``src = floor(dst * in / out)``, torch's ``mode='nearest'``."""
+    """``src = floor(dst * in / out)``, torch's ``mode='nearest'``. Within
+    the band in band mode (a whole ratio of rows)."""
+    _local(x, int(size[0]))
     return F.interpolate(x, size=tuple(int(s) for s in size), mode="nearest")
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int | None = None,
              padding: int = 0) -> torch.Tensor:
-    return F.max_pool2d(x, window, stride or window, padding)
+    """``F.max_pool2d``; in band mode on the rows the band's output reads,
+    padded with -inf at the frame's edges only."""
+    stride = stride or window
+    bands = space.current()
+    if bands is None:
+        return F.max_pool2d(x, window, stride, padding)
+    x = bands.window(x, window, stride, 1, padding, fill=float("-inf"))
+    return F.max_pool2d(x, window, stride, (0, padding))
 
 
 def adaptive_avg_pool(x: torch.Tensor,
                       out_size: int | tuple[int, int]) -> torch.Tensor:
-    """Bin i spans [floor(i*H/s), ceil((i+1)*H/s))."""
-    return F.adaptive_avg_pool2d(x, out_size)
+    """Bin i spans [floor(i*H/s), ceil((i+1)*H/s)). In band mode over the
+    global H: each bin sums this band's rows of it (in at least f32), the
+    sums are summed over the bands, and the whole pooled map is returned
+    on every rank."""
+    bands = space.current()
+    if bands is None:
+        return F.adaptive_avg_pool2d(x, out_size)
+    sh, sw = (out_size, out_size) if isinstance(out_size, int) else out_size
+    lo, hi, height = bands.span(x.shape[-2])
+    w = x.shape[-1]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    sums, areas = [], []
+    for i in range(sh):
+        a, b = (i * height) // sh, -((-(i + 1) * height) // sh)
+        band = xf[..., max(a, lo) - lo:max(min(b, hi), lo) - lo, :].sum(-2)
+        for j in range(sw):
+            c, d = (j * w) // sw, -((-(j + 1) * w) // sw)
+            sums.append(band[..., c:d].sum(-1))
+            areas.append((b - a) * (d - c))
+    total = bands.sum_over_bands(torch.stack(sums, -1))
+    out = total / torch.tensor(areas, dtype=total.dtype, device=x.device)
+    return out.reshape(x.shape[:-2] + (sh, sw)).to(x.dtype)
 
 
 def max_pool_argmax_2x2(x: torch.Tensor
@@ -49,8 +117,10 @@ def max_pool_argmax_2x2(x: torch.Tensor
     (pooled, idx): ``idx`` is the uint8 in-window position of the max in
     [0, 4), row-major, the first on ties, as ``nn.MaxPool2d(2, 2,
     return_indices=True)`` picks it. A quarter of torch's int64 flat index:
-    a stream caches three levels of it per frame."""
+    a stream caches three levels of it per frame. Within the band in band
+    mode."""
     n, c, h, w = x.shape
+    _local(x, h // 2)
     xv = x.view(n, c, h // 2, 2, w // 2, 2)
     a, b = xv[:, :, :, 0, :, 0], xv[:, :, :, 0, :, 1]
     d, e = xv[:, :, :, 1, :, 0], xv[:, :, :, 1, :, 1]
@@ -65,8 +135,9 @@ def max_pool_argmax_2x2(x: torch.Tensor
 def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`max_pool_argmax_2x2`: each value of ``[N, C, h, w]``
     goes to its recorded in-window slot of ``[N, C, 2h, 2w]``, zeros
-    elsewhere (``nn.MaxUnpool2d(2, 2)``)."""
+    elsewhere (``nn.MaxUnpool2d(2, 2)``). Within the band in band mode."""
     n, c, h, w = x.shape
+    _local(x, 2 * h)
     slot = torch.arange(4, dtype=idx.dtype, device=idx.device).view(
         1, 1, 1, 2, 1, 2)
     out = torch.where(idx[:, :, :, None, :, None] == slot,

@@ -11,6 +11,18 @@ tool's sweep over every device) each rank reads every N-th batch of
 sweep; the losses are summed over the ranks, and rank 0 writes loss.log
 once every rank is done. ``--dist_backend gloo`` for two ranks on one
 card.
+
+``--space S`` (``--model fba`` or ``dim``; N a multiple of S) splits each
+frame's H axis over S ranks (``parallel.space``): the N ranks form N / S
+data groups of S consecutive ranks, each group sweeps every (N / S)-th
+batch, and each rank of a group computes one horizontal band of every
+frame (the preprocessing and the losses whole on each). The group's first
+rank writes the PNGs and adds the group's losses. On S cards::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m tcvom_tpu_torch.tools.pred_vmn --model fba --space 2 ...
+
+and ``--dist_backend gloo`` for two ranks that share one card.
 """
 from __future__ import annotations
 
@@ -30,6 +42,8 @@ from tcvom_tpu_torch.tools.common import (MODELS, add_device_arg, init_ranks,
                                           load_model)
 from tcvom_tpu_torch.utils.logging import print_loss_dict
 
+# the models whose every row-coupling op is band-aware (parallel.space)
+SPACE_MODELS = ("fba", "dim")
 LOSS_NAMES = {"L_alpha": "L1", "L_comp": "L2", "L_grad": "L3",
               "L_dt": "L_dt", "L_att": "L_att"}
 
@@ -49,8 +63,8 @@ def parse_args(argv=None):
     p.add_argument("--image_shape", type=int, nargs=2, default=(1088, 1920),
                    help="padded network resolution (1080 %% 32 != 0)")
     p.add_argument("--space", type=int, default=1,
-                   help="split the image H axis over this many cards (not "
-                        "ported: ROADMAP.md Queue 1 item 12)")
+                   help="split each frame's H axis over this many ranks "
+                        "(--model fba or dim)")
     add_device_arg(p, distributed=True)
     return p.parse_args(argv)
 
@@ -67,11 +81,18 @@ def main(argv=None, stats: dict | None = None) -> dict:
     ``setup`` (the dataset, the model and its checkpoint), ``load_wait``
     (starting the loader's workers and waiting on them), ``step`` (the
     evaluation step, its losses read on the host) and ``write`` (the
-    mattes read back and their PNGs), this rank's."""
+    mattes read back and their PNGs), this rank's; with ``--space`` > 1
+    also ``band`` (this rank's input rows) and ``exchanges`` (its band
+    exchanges over the sweep, ``{kind: [calls, bytes]}``)."""
     args = parse_args(argv)
-    if args.space != 1:
-        raise NotImplementedError("--space splits a frame over several "
-                                  "cards: ROADMAP.md Queue 1 item 12")
+    if args.space < 1:
+        raise ValueError(f"--space {args.space}: a space group has at least "
+                         "one rank")
+    if args.space > 1 and args.model not in SPACE_MODELS:
+        raise NotImplementedError(
+            f"--space for --model {args.model} (IndexNet's ASPP pool and "
+            "index blocks, GCA's guided attention, reflection pad and "
+            "transposed conv over bands): ROADMAP.md Queue 1 item 12b")
     with init_ranks(args):
         return _sweep(args, stats)
 
@@ -94,10 +115,18 @@ def _sweep(args, stats: dict | None) -> dict:
         data_root=args.data, image_shape=tuple(args.image_shape), mode="val",
         use_subset=args.subset, plus1=False, precomputed_val=args.data,
         sample_length=3, no_flow=True)
+    bands = None
+    if args.space > 1:
+        bands = parallel.Bands(args.image_shape[0],
+                               *parallel.space_group(args.space))
+        stats["band"] = [bands.lo, bands.hi]
     loader = make_loader(dataset, args.batch, args.n_threads,
-                         num_shards=parallel.world(), shard=parallel.rank())
+                         num_shards=parallel.world() // args.space,
+                         shard=parallel.rank() // args.space)
     model = load_model(model_name, args, args.agg_window)
-    step = make_vmd_eval_step(model, cfg)
+    step = make_vmd_eval_step(model, cfg, bands)
+    # the first rank of a space group reports for it
+    reports = parallel.rank() % args.space == 0
 
     c = dataset.sample_length // 2
     crop = (min(1080, args.image_shape[0]), min(1920, args.image_shape[1]))
@@ -109,16 +138,19 @@ def _sweep(args, stats: dict | None) -> dict:
         losses, alphas, tris = step(batch)
         losses = {k: float(v) for k, v in losses.items()}
         t0 = lap("step", t0)
-        b = len(batch["idx"])
-        for name, k in LOSS_NAMES.items():
-            eval_loss[name] += losses[k] * b
-        eval_loss["L_total"] += sum(losses.values()) * b
-        names = [dataset.samples[int(i)][c] for i in batch["idx"]]
-        write_pred_pngs(args.save, names, alphas, tris, crop_hw=crop)
-        print(f"{names[-1]}  " + " ".join(f"{k}={v:.4f}"
-                                          for k, v in losses.items()))
+        if reports:
+            b = len(batch["idx"])
+            for name, k in LOSS_NAMES.items():
+                eval_loss[name] += losses[k] * b
+            eval_loss["L_total"] += sum(losses.values()) * b
+            names = [dataset.samples[int(i)][c] for i in batch["idx"]]
+            write_pred_pngs(args.save, names, alphas, tris, crop_hw=crop)
+            print(f"{names[-1]}  " + " ".join(f"{k}={v:.4f}"
+                                              for k, v in losses.items()))
         t0 = lap("write", t0)
     lap("load_wait", t0)
+    if bands is not None:
+        stats["exchanges"] = bands.counts
     sums = parallel.all_reduce_sum(torch.tensor(
         list(eval_loss.values()), dtype=torch.float64, device=args.device))
     eval_loss = {k: float(v) / float(len(dataset))

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from tcvom_tpu_torch import parallel
 from tcvom_tpu_torch.infer.predict import StreamingPredictor
 from tcvom_tpu_torch.models.full_model import TaskConfig, forward_eval
 from tcvom_tpu_torch.models.registry import (build_model,
@@ -193,6 +194,54 @@ def test_fam_logits_kernel_matches_plain(dev, rng, shape, window, dtype):
            else dict(atol=2e-2, rtol=2e-2))
     torch.testing.assert_close(got.float(), want.float(), **tol)
     torch.testing.assert_close(lg.float(), want_lg.float(), **tol)
+
+
+class _BandOfTwo(parallel.Bands):
+    """Rank ``index`` of a space group of two, in one process: its halos
+    are read from ``whole``, the tensor whose band it is given (no
+    exchange)."""
+
+    def __init__(self, height: int, index: int, whole: torch.Tensor):
+        super().__init__(height)
+        self.n, self.index = 2, index
+        self.bounds = parallel.band_table(height, 2)
+        self.lo, self.hi = self.bounds[index]
+        self.whole = whole
+
+    def rows(self, x, lo, hi, fill=0.0):
+        rows = self.whole.shape[-2]
+        top, bottom = max(-lo, 0), max(hi - rows, 0)
+        padded = torch.nn.functional.pad(self.whole, (0, 0, top, bottom),
+                                         value=fill)
+        return padded[..., lo + top:hi + top, :]
+
+
+@pytest.mark.parametrize("shape,window", [((2, 136, 240, 256), 7),
+                                          ((2, 8, 24, 256), 7),
+                                          ((2, 8, 24, 256), 3)])
+def test_fam_logits_kernel_on_a_band_is_the_whole_grids(dev, rng, shape,
+                                                        window):
+    """``pred_vmn --space 2``'s FAM on each band (``ops/fam.py``'s band
+    mode: the band and window // 2 rows on its inner side, k's the other
+    band's, q's and the mask's zeros) against the same kernel on the
+    whole grid, cropped: bit for bit. At the 1088x1920 grid the kernel
+    takes [2, 71, 240, 256] (3 rows below the first band) and [2, 72,
+    240, 256] (4 above the second: the rows keep their parity)."""
+    q, k, m = _fam_inputs(rng, shape, torch.float32, dev)
+    want = fam.fam_attention(q, k, m, window, need_logits=True)
+    h = shape[1] // 2
+    for index in (0, 1):
+        band = slice(index * h, (index + 1) * h)
+        layout = _BandOfTwo(shape[1] * 8, index, k.movedim(1, 2))
+        cuda_build.LAUNCHES.clear()
+        with parallel.banded(layout):
+            got = fam.fam_attention(q[:, band], k[:, band], m[:, band],
+                                    window, need_logits=True)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES == {"fam_window_logits": 1}
+        for g, w in zip(got, want):
+            assert g.shape == w[:, band].shape
+            assert torch.equal(g, w[:, band])
 
 
 @pytest.mark.parametrize("need_logits", [True, False])

@@ -174,8 +174,10 @@ def test_pred_single_adobe(ckpts, tmp_path, one_thread, model):
 def test_tools_raise_for_what_is_not_ported(ckpts, tmp_path):
     base = ["--data", str(tmp_path), "--load", ckpts["fba"], "--trimap",
             "medium"] + CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pred_vmn.main(["--model", "fba", "--space", "2"] + base)
+    # --space for IndexNet and GCA (FBA's and DIM's: test_torch_space*.py)
+    for model in ("index", "gca"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*12b"):
+            pred_vmn.main(["--model", model, "--space", "2"] + base)
     # a directory (the JAX package's orbax checkpoint) is not read
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pred_test.main(["--model", "gca", "--vmn", "--load", str(tmp_path),
