@@ -62,7 +62,8 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
 11. pred_single --model dim and --model gca on pred_vmn's clip (f32;
    finite mSAD and MSE, the PNGs, seconds per sample, no kernel launched)
    and pred_vmn --model index and --model gca on it (f32; one
-   fam_window_logits launch per sample, finite losses, the PNGs); then
+   fam_window_logits launch per sample, finite losses, the PNGs, at least
+   LIVE_SHARE of the mattes' pixels strictly between 0 and 255); then
    pred_single --model fba --dataset adobe on two stills of
    Composition-1k's size (pred_single_adobe_phase): at the tool's
    defaults, the 800x800 resize grid, with --vis, and at --val_mode
@@ -100,13 +101,14 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    TF32); the DDP step's ms beside the plain step's, each rank's peak
    memory; then pred_vmn_space (check_fam_band, pred_vmn_space_phase):
    kernel D at a --space 2 band of the 1088x1920 grid plus its halo,
-   [2, 71, 240, 256] and [2, 72, 240, 256], bit for bit the whole grid's
-   call cropped, timed; pred_vmn --space 2 --model fba and --model dim on
-   two gloo ranks of the one card against the one-process sweeps (PNGs
-   within one level and >= 99.9 % identical, loss.log within rtol 1e-4;
-   DIM within twice what a rounding-size jitter of its weights moves its
-   one-process sweep where that is more; each rank's launches, band, step
-   and peak, the band exchanges a sample);
+   [2, 71, 240, C] and [2, 72, 240, C] at C = 256 (FBA, DIM), 32
+   (IndexNet) and 128 (GCA), bit for bit the whole grid's call cropped,
+   timed; pred_vmn --space 2 with each of the four models on two gloo
+   ranks of the one card against the one-process sweeps (PNGs within one
+   level and >= 99.9 % identical, loss.log within rtol 1e-4; DIM and GCA
+   within twice what a rounding-size jitter of their weights moves their
+   one-process sweeps where that is more; each rank's launches, band,
+   step and peak, the band exchanges a sample);
 16. train_<name>_bf16, train_<name>_remat (fba, dim, index, gca, as in
    8 and 13) and train_cli_bf16_remat: TRAIN.BF16 (the JAX recipe: f32
    arithmetic on bf16-rounded weights, state and batch) over five steps,
@@ -141,6 +143,8 @@ import argparse
 import atexit
 import contextlib
 import copy
+import functools
+import gc
 import itertools
 import json
 import os
@@ -182,8 +186,10 @@ BF16_STREAM = {"max_level_diff": 32, "identical_share": 0.975}
 # 99.981 %; measured once on the H100, PERF.md).
 BF16_BACKBONE = {"dim": {"max_level_diff": 8, "identical_share": 0.958},
                  "index": BF16_STREAM, "gca": BF16_STREAM}
-# share of the unknown pixels (trimap 128) whose matte must lie strictly
-# between 0 and 255 before a comparison of mattes says something
+# share of the mattes' pixels that must lie strictly between 0 and 255
+# before a comparison of mattes says something: of the trimaps' unknown
+# pixels (trimap 128) in the streams (unknown_share), of every pixel of the
+# pred PNGs in the pred_vmn sweeps (live_share)
 LIVE_SHARE = 0.01
 PEAK_OPS = {torch.float32: 67e12,             # f32 outside the tensor cores
             torch.bfloat16: 989e12,           # bf16 tensor cores, dense
@@ -203,8 +209,13 @@ def fail(msg: str):
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with ``t``: seconds since the script started."""
+    print(json.dumps(dict(kw, t=round(time.perf_counter() - T_START, 1))),
+          flush=True)
 
 
 PR_SET_CHILD_SUBREAPER = 36
@@ -1689,6 +1700,27 @@ def fresh_tf32():
 INPUT_ROUNDING = (1e-6, 2e-6)
 
 
+@functools.lru_cache(maxsize=1)
+def gca_b12_batch(tree):
+    """GCA_CFG with SGD at B = 12 on ``tree`` as ``tools.train`` reads it:
+    (the config, its batches an epoch, the sampler's first batch), read
+    once for every ``gca_b12_steps`` call on ``tree``."""
+    from types import SimpleNamespace
+
+    from tcvom_tpu_torch.config import load_config
+    from tcvom_tpu_torch.data.loader import make_loader
+    from tcvom_tpu_torch.tools import train as T
+
+    cfg = load_config(str(ROOT / "cfgs" / GCA_CFG), [
+        "DATASET.PATH", str(tree), "TRAIN.OPTIMIZER", "sgd",
+        "TRAIN.BATCH_SIZE_PER_GPU", "12", "TRAIN.TOTAL_STEPS", "1"])
+    seed = cfg.SYSTEM.RANDOM_SEED
+    data, _ = T._datasets(cfg, SimpleNamespace(
+        dataset="vmd", driver="vmd", sample_length=None), seed)
+    loader = make_loader(data, 12, shuffle=True, seed=seed, drop_last=True)
+    return cfg, len(loader), next(iter(loader))
+
+
 def gca_b12_steps(tree, ckpt, jitter: float = 0.0):
     """``tools.train``'s first step of GCA_CFG with SGD at B = 12 on
     ``tree``, in this process, as the command makes it (the config, the
@@ -1698,23 +1730,14 @@ def gca_b12_steps(tree, ckpt, jitter: float = 0.0):
     jittered by relative ``jitter``; then a second step on the same
     batch, timed. Returns (the first step's loss, the weights and
     buffers after it, the second step's ms, the peak memory in GiB)."""
-    from types import SimpleNamespace
-
-    from tcvom_tpu_torch.config import load_config
-    from tcvom_tpu_torch.data.loader import make_loader
     from tcvom_tpu_torch.models.full_model import TaskConfig
     from tcvom_tpu_torch.tools import train as T
     from tcvom_tpu_torch.train.trainer import MattingTrainer
     from tcvom_tpu_torch.utils.checkpoint import load_weights
 
-    cfg = load_config(str(ROOT / "cfgs" / GCA_CFG), [
-        "DATASET.PATH", str(tree), "TRAIN.OPTIMIZER", "sgd",
-        "TRAIN.BATCH_SIZE_PER_GPU", "12", "TRAIN.TOTAL_STEPS", "1"])
+    cfg, batches, batch = gca_b12_batch(tree)
     seed = cfg.SYSTEM.RANDOM_SEED
-    data, _ = T._datasets(cfg, SimpleNamespace(
-        dataset="vmd", driver="vmd", sample_length=None), seed)
-    loader = make_loader(data, 12, shuffle=True, seed=seed, drop_last=True)
-    batch = T._on(next(iter(loader)), torch.device("cuda"))
+    batch = T._on(batch, torch.device("cuda"))
     if jitter:
         gen = torch.Generator(device="cuda").manual_seed(1)
         for k in ("fg", "bg"):
@@ -1725,7 +1748,7 @@ def gca_b12_steps(tree, ckpt, jitter: float = 0.0):
         "vmd", optimizer=cfg.TRAIN.OPTIMIZER,
         lr_strategy=cfg.TRAIN.LR_STRATEGY, base_lr=cfg.TRAIN.BASE_LR,
         weight_decay=cfg.TRAIN.WEIGHT_DECAY,
-        total_iters=cfg.TRAIN.TOTAL_STEPS * len(loader))
+        total_iters=cfg.TRAIN.TOTAL_STEPS * batches)
     state = trainer.init_state(torch.Generator().manual_seed(seed))
     load_weights(state.model, str(ckpt))
     torch.cuda.reset_peak_memory_stats()
@@ -1968,60 +1991,65 @@ def pred_vmn_ddp_phase(tmp, root) -> dict:
     return counts
 
 
-# The relative jitter of DIM's weights whose move sets the limits of its
-# pred_vmn --space check: rounding's size (f32 convolutions in another
-# order move DIM's pool inputs by ~1e-6 relative; its argmax pools then
-# flip near-ties, as the band split's other cuDNN algorithms do)
-DIM_JITTER = 1e-6
+# The relative jitter of DIM's and GCA's weights whose move sets the
+# limits of their pred_vmn --space checks: rounding's size (f32
+# convolutions in another order move DIM's pool inputs by ~1e-6 relative;
+# its argmax pools then flip near-ties, as the band split's other cuDNN
+# algorithms do; GCA's attention amplifies such a move)
+JITTER = 1e-6
 
 
-def check_fam_band(fam, fam_kernel) -> dict:
-    """Kernel D at ``pred_vmn --space 2``'s band of the 1088x1920 grid
-    (FBA's and DIM's FAM, C = 256): each rank's [2, 68, 240, 256] band and
-    its halo on its inner side, as ``ops/fam.py::fam_attention`` builds it
-    (k's extra rows the other band's, q's and the mask's zeros): 3 rows
-    below the first band, [2, 71, 240, 256], and 4 above the second (an
-    even count keeps the rows' parity in the kernel's two-row warp
-    tiles), [2, 72, 240, 256]. For both bands the call is held bit for bit
-    against the call on the whole grid, cropped, and the first band's
-    against the plain version (1e-5); timed there. Returns its row."""
+# the FAM widths of pred_vmn --space 2's bands: FBA's and DIM's,
+# IndexNet's, GCA's
+BAND_WIDTHS = (256, 32, 128)
+
+
+def check_fam_band(fam, fam_kernel, c: int) -> dict:
+    """Kernel D at ``pred_vmn --space 2``'s band of the 1088x1920 grid at
+    FAM width ``c``: each rank's [2, 68, 240, c] band and its halo on its
+    inner side, as ``ops/fam.py::fam_attention`` builds it (k's extra rows
+    the other band's, q's and the mask's zeros): 3 rows below the first
+    band, [2, 71, 240, c], and 4 above the second (an even count keeps the
+    rows' parity in the kernel's two-row warp tiles), [2, 72, 240, c].
+    For both bands the call is held bit for bit against the call on the
+    whole grid, cropped, and against the plain version (1e-5), and timed
+    with its bound. Returns the first band's row."""
     import torch.nn.functional as F
 
-    rng = np.random.RandomState(5)
-    shape = (2, H // 8, W // 8, 256)
+    rng = np.random.RandomState(5 + c)
+    shape = (2, H // 8, W // 8, c)
     q, k = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
             for _ in range(2))
     m = torch.from_numpy((rng.rand(*shape[:3], 1) > 0.4).astype(
         np.float32)).cuda()
     whole = fam_kernel.fam_window_logits(q, k, m, WINDOW)
     r, h = WINDOW // 2, shape[1] // 2
+    rows = []
     for lo, top, bottom in ((0, 0, r), (h, r + r % 2, 0)):
         kb = k[:, lo - top:lo + h + bottom].contiguous()
         qb, mb = (F.pad(t[:, lo:lo + h], (0, 0, 0, 0, top, bottom))
                   for t in (q, m))
-        got = fam_kernel.fam_window_logits(qb, kb, mb, WINDOW)
+        band = (qb, kb, mb)
+        got = fam_kernel.fam_window_logits(*band, WINDOW)
         for what, g, wt in zip(("out", "logits"), got, whole):
             if not torch.equal(g[:, top:top + h], wt[:, lo:lo + h]):
-                fail(f"fam_window_logits on band {lo}: {what} differs from "
-                     "the whole grid's")
-        if lo == 0:
-            band = (qb, kb, mb)
-    want = fam.fam_attention_ref(*band, WINDOW)
-    got = fam_kernel.fam_window_logits(*band, WINDOW)
-    err = max((g - wt).abs().max().item() for g, wt in zip(got, want))
-    if err > 1e-5:
-        fail(f"fam_window_logits at the band shape off the plain version "
-             f"by {err}")
-    ms = time_ms(lambda: fam_kernel.fam_window_logits(*band, WINDOW), 20)
-    plain_ms = time_ms(lambda: fam.fam_attention_ref(*band, WINDOW), 3)
-    b_ms, b_by = bound(*fam_counts(band[2], 256, WINDOW, logits=True),
-                       torch.float32)
-    res = dict(shape=list(band[0].shape), dtype=str(torch.float32),
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by)
-    emit(phase="time", kernel="fam_window_logits", what="space band",
-         bit_equal_to_whole=True, **res)
-    return res
+                fail(f"fam_window_logits at C = {c} on band {lo}: {what} "
+                     "differs from the whole grid's")
+        want = fam.fam_attention_ref(*band, WINDOW)
+        err = max((g - wt).abs().max().item() for g, wt in zip(got, want))
+        if err > 1e-5:
+            fail(f"fam_window_logits at the band shape {tuple(qb.shape)} "
+                 f"off the plain version by {err}")
+        ms = time_ms(lambda: fam_kernel.fam_window_logits(*band, WINDOW), 20)
+        plain_ms = time_ms(lambda: fam.fam_attention_ref(*band, WINDOW), 3)
+        b_ms, b_by = bound(*fam_counts(mb, c, WINDOW, logits=True),
+                           torch.float32)
+        rows.append(dict(shape=list(qb.shape), dtype=str(torch.float32),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        emit(phase="time", kernel="fam_window_logits", what="space band",
+             band=lo, bit_equal_to_whole=True, **rows[-1])
+    return rows[0]
 
 
 def png_diffs(want_dir, got_dir) -> dict:
@@ -2038,25 +2066,29 @@ def png_diffs(want_dir, got_dir) -> dict:
     return out
 
 
-def pred_vmn_space_phase(tmp, root, fba_save, fba_sweep) -> dict:
-    """``pred_vmn --space 2`` (FBA and DIM, f32, the fake clip's 4 samples,
-    B = 1, 1088x1920, window 7, no loader workers) on two gloo ranks of
-    the one card, each computing one 544-row band of every frame, against
-    the one-process sweep of the same arguments: FBA's is ``pred_vmn``'s
-    own (``fba_save``, its seconds and peak ``fba_sweep``), DIM's (seed-0
-    weights calibrated on the clip's first sample) runs here. Both sides
-    without TF32 (this process's setting; the ranks' ``--no_tf32``).
-    Holds each PNG within one level and >= 99.9 % identical, loss.log
-    within rtol 1e-4; DIM within twice what its rounding moves it where
-    that is more (at least one level, 99.9 %, 1e-4): a change of cuDNN's
-    algorithms (a band's shape is not the frame's) flips near-ties of its
-    2x2 argmax pools, so its limits are set in the same run by the
-    one-process sweep again with every weight moved by a relative
-    ``DIM_JITTER``. Holds each rank's launches (``fam_window_logits`` 4,
-    ``edt_row`` 4 for FBA and 0 for DIM); prints each rank's band, kernel
-    D's shapes, step seconds a sample and peak beside the one-process
-    sweep's, and the band exchanges a sample. Returns both ranks' launches
-    by model."""
+def pred_vmn_space_phase(tmp, root, refs: dict) -> dict:
+    """``pred_vmn --space 2`` (all four models, f32, the fake clip's 4
+    samples, B = 1, 1088x1920, window 7, no loader workers) on two gloo
+    ranks of the one card, each computing one 544-row band of every
+    frame (one launch: each rank runs the four sweeps one after the other
+    in one process group, each from zero launch counts), against the
+    one-process sweep of the same arguments: FBA's,
+    IndexNet's and GCA's are ``refs`` (``{model: (.pth, folder, its
+    seconds by phase and peak)}``: ``pred_vmn``'s and
+    ``pred_vmn_backbone_phase``'s), DIM's (seed-0 weights calibrated on
+    the clip's first sample) runs here. Both sides without TF32 (this
+    process's setting; the ranks' ``--no_tf32``). Holds each PNG within
+    one level and >= 99.9 % identical, loss.log within rtol 1e-4; DIM and
+    GCA within twice what their rounding moves them where that is more
+    (at least one level, 99.9 %, 1e-4): DIM's 2x2 argmax pools flip
+    near-ties under a change of cuDNN's algorithms (a band's shape is not
+    the frame's), GCA's attention amplifies rounding (ROADMAP Queue 3), so
+    their limits are set in the same run by the one-process sweep again
+    with every weight moved by a relative ``JITTER``. Holds each rank's
+    launches (``fam_window_logits`` 4, ``edt_row`` 4 for FBA and 0 for
+    the rest); prints each rank's band, kernel D's shapes, step seconds a
+    sample and peak beside the one-process sweep's, and the band
+    exchanges a sample. Returns both ranks' launches by model."""
     from tcvom_tpu_torch.data.vmd import VideoMattingDataset
     from tcvom_tpu_torch.infer.predict import TRIMAP_DILATION
     from tcvom_tpu_torch.models.full_model import TaskConfig, forward_vmd
@@ -2091,39 +2123,58 @@ def pred_vmn_space_phase(tmp, root, fba_save, fba_sweep) -> dict:
     pred_vmn.main(args("dim", tmp / "vmn_dim_space.pth", dim_save),
                   dim_sweep)
     dim_sweep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    # DIM's rounding reference: the one-process sweep again with every
-    # weight moved by a relative DIM_JITTER (seeded)
-    sd = torch.load(tmp / "vmn_dim_space.pth")
-    gen = torch.Generator().manual_seed(6)
-    torch.save({k: v * (1 + DIM_JITTER * torch.randn(v.shape, generator=gen))
-                if k.endswith(("weight", "bias")) else v
-                for k, v in sd.items()}, tmp / "vmn_dim_jitter.pth")
-    jitter_save = tmp / "pred_vmn_dim_jitter"
-    pred_vmn.main(args("dim", tmp / "vmn_dim_jitter.pth", jitter_save))
-    pngs = png_diffs(dim_save / "clip_b", jitter_save / "clip_b")
-    got, want = read_losses(jitter_save), read_losses(dim_save)
-    jitter = dict(level=max(d for d, _ in pngs.values()),
-                  identical=min(f for _, f in pngs.values()),
-                  loss_rel=max(abs(got[k] - v) / max(abs(v), 1e-30)
-                               for k, v in want.items()))
-    limits = {"fba": (1, 0.999, 1e-4),
-              "dim": (max(1, 2 * jitter["level"]),
-                      min(0.999, 1 - 2 * (1 - jitter["identical"])),
-                      max(1e-4, 2 * jitter["loss_rel"]))}
-    emit(phase="pred_vmn_space_dim_rounding", jitter=DIM_JITTER,
-         png_worst_level=jitter["level"],
-         png_identical_least=jitter["identical"],
-         loss_rel_err_worst=jitter["loss_rel"], limits=limits["dim"])
+    refs = dict(refs, dim=(tmp / "vmn_dim_space.pth", dim_save, dim_sweep))
+    limits = {m: (1, 0.999, 1e-4) for m in refs}
+    for model in ("dim", "gca"):
+        # the rounding reference: the one-process sweep again with every
+        # weight moved by a relative JITTER (seeded)
+        ckpt, save, _ = refs[model]
+        sd = torch.load(ckpt)
+        gen = torch.Generator().manual_seed(6)
+        jittered = tmp / f"vmn_{model}_jitter.pth"
+        torch.save({k: v * (1 + JITTER * torch.randn(v.shape, generator=gen))
+                    if k.endswith(("weight", "bias", "weight_bar")) else v
+                    for k, v in sd.items()}, jittered)
+        jitter_save = tmp / f"pred_vmn_{model}_jitter"
+        pred_vmn.main(args(model, jittered, jitter_save))
+        pngs = png_diffs(save / "clip_b", jitter_save / "clip_b")
+        got, want = read_losses(jitter_save), read_losses(save)
+        jitter = dict(level=max(d for d, _ in pngs.values()),
+                      identical=min(f for _, f in pngs.values()),
+                      loss_rel=max(abs(got[k] - v) / max(abs(v), 1e-30)
+                                   for k, v in want.items()))
+        limits[model] = (max(1, 2 * jitter["level"]),
+                         min(0.999, 1 - 2 * (1 - jitter["identical"])),
+                         max(1e-4, 2 * jitter["loss_rel"]))
+        emit(phase=f"pred_vmn_space_{model}_rounding", jitter=JITTER,
+             png_worst_level=jitter["level"],
+             png_identical_least=jitter["identical"],
+             loss_rel_err_worst=jitter["loss_rel"], limits=limits[model])
+    # the four sweeps one after the other in one launch of two ranks; this
+    # process's cached blocks are released first. GCA's peak is a cuDNN
+    # workspace (tools/memory_probe.py): cuDNN runs the first plan whose
+    # workspace it can allocate, so a rank that found the card short of
+    # memory would run another plan and peak lower
+    free_cached = torch.cuda.mem_get_info()[0] / 2**30
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0] / 2**30
+    models = ("fba", "dim", "index", "gca")
+    runs = []
+    for model in models:
+        runs += ["--then"] * bool(runs) + ["--space", "2", *args(
+            model, refs[model][0], tmp / f"pred_vmn_space_{model}")]
+    secs = tool_run(torchrun(2, "chip_smoke") + [
+        "--tool", "pred_vmn", "--launches",
+        *(str(tmp / f"pred_vmn_space_{m}_launches") for m in models),
+        "--no_tf32", "--dist_backend", "gloo", *runs],
+        "pred_vmn --space 2, four models")
+    emit(phase="pred_vmn_space_launch", models=models, seconds=secs,
+         card_free_gib=free, card_free_gib_before_empty_cache=free_cached)
     counts = {}
-    for model, ckpt, save, sweep in (
-            ("fba", tmp / "vmn_fba.pth", fba_save, fba_sweep),
-            ("dim", tmp / "vmn_dim_space.pth", dim_save, dim_sweep)):
+    for model in models:
+        _, save, sweep = refs[model]
         out, counts_dir = (tmp / f"pred_vmn_space_{model}",
                            tmp / f"pred_vmn_space_{model}_launches")
-        secs = tool_run(torchrun(2, "chip_smoke") + [
-            "--tool", "pred_vmn", "--launches", str(counts_dir), "--no_tf32",
-            "--dist_backend", "gloo", "--space", "2",
-            *args(model, ckpt, out)], f"pred_vmn --space 2 --model {model}")
         ranks = []
         for r in range(2):
             st = json.loads((counts_dir / f"rank_{r}_stats.json").read_text())
@@ -2142,7 +2193,7 @@ def pred_vmn_space_phase(tmp, root, fba_save, fba_sweep) -> dict:
         rel = max(abs(got[k] - v) / max(abs(v), 1e-30)
                   for k, v in want.items())
         emit(phase="pred_vmn_space", model=model, space=2, backend="gloo",
-             seconds=secs, ranks=ranks,
+             ranks=ranks,
              one_process=dict(step_s_per_sample=sweep["step"] / samples,
                               peak_gib=sweep["peak_gib"]),
              png_worst_level=max(d for d, _ in pngs.values()),
@@ -2168,21 +2219,24 @@ def pred_vmn_space_phase(tmp, root, fba_save, fba_sweep) -> dict:
     return counts
 
 
-def tool_rank(tool: str, counts_dir: str | None, argv: list,
+def tool_rank(tool: str, counts_dirs: list | None, argv: list,
               tf32: bool = True) -> None:
     """``--tool``: ``tcvom_tpu_torch.tools.<tool>.main(argv)`` in this
     process (a rank, under ``torch.distributed.run``), from zero launch
-    counts; ``tools.train`` validating from its first epoch. With
-    ``counts_dir``, the process's kernel launches then go to
-    ``<counts_dir>/rank_<RANK>.json``, and for ``pred_vmn`` its sweep's
-    stats (seconds by phase, the band and its exchanges under
-    ``--space``), its peak device memory and the shapes of q its logits
-    kernel took to ``<counts_dir>/rank_<RANK>_stats.json``. ``tf32``
-    False (``--no_tf32``): cuDNN's convolutions and cuBLAS's matmuls
-    without TF32, as this script's own runs compute."""
+    counts; ``tools.train`` validating from its first epoch. ``pred_vmn``
+    takes several runs, their arguments separated by ``--then``, one
+    after the other in one process group, each from zero launch counts.
+    With ``counts_dirs`` (one a run), a run's kernel launches then go to
+    ``<its dir>/rank_<RANK>.json``, and for ``pred_vmn`` its sweep's stats
+    (seconds by phase, the band and its exchanges under ``--space``), its
+    peak device memory and the shapes of q its logits kernel took to
+    ``<its dir>/rank_<RANK>_stats.json``. ``tf32`` False (``--no_tf32``):
+    cuDNN's convolutions and cuBLAS's matmuls without TF32, as this
+    script's own runs compute."""
     import importlib
 
     from tcvom_tpu_torch.ops import cuda_build, fam_kernel
+    from tcvom_tpu_torch.tools.common import init_ranks
 
     if not tf32:
         torch.backends.cudnn.allow_tf32 = False
@@ -2190,30 +2244,47 @@ def tool_rank(tool: str, counts_dir: str | None, argv: list,
     mod = importlib.import_module(f"tcvom_tpu_torch.tools.{tool}")
     if tool == "train":
         mod.VAL_FROM_EPOCH = 0
-    cuda_build.LAUNCHES.clear()
+    runs = [list(g) for split, g in itertools.groupby(
+        argv, lambda a: a == "--then") if not split]
+    if tool != "pred_vmn" and len(runs) > 1:
+        raise SystemExit(f"--then takes pred_vmn runs, not {tool}")
+    counts_dirs = counts_dirs or [None] * len(runs)
+    if len(counts_dirs) != len(runs):
+        raise SystemExit(f"{len(counts_dirs)} --launches folders for "
+                         f"{len(runs)} runs")
+    rank = os.environ.get("RANK", "0")
+
+    def write(counts_dir, name, value):
+        if counts_dir:
+            os.makedirs(counts_dir, exist_ok=True)
+            Path(counts_dir, name).write_text(json.dumps(value))
+
     if tool != "pred_vmn":
+        cuda_build.LAUNCHES.clear()
         mod.main(argv)
-    else:
-        stats, shapes = {}, []
-        logits = fam_kernel.fam_window_logits
+        write(counts_dirs[0], f"rank_{rank}.json", dict(cuda_build.LAUNCHES))
+        return
+    logits = fam_kernel.fam_window_logits
+    # one process group for every run (a tool leaves a group it did not
+    # make as it found it)
+    with init_ranks(mod.parse_args(runs[0])):
+        for run, counts_dir in zip(runs, counts_dirs):
+            stats, shapes = {}, []
 
-        def recording(q, *a, **kw):
-            shapes.append(list(q.shape))
-            return logits(q, *a, **kw)
+            def recording(q, *a, **kw):
+                shapes.append(list(q.shape))
+                return logits(q, *a, **kw)
 
-        torch.cuda.reset_peak_memory_stats()
-        with mock.patch.object(fam_kernel, "fam_window_logits", recording):
-            mod.main(argv, stats)
-        stats.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                     fam_shapes=shapes)
-    if counts_dir:
-        os.makedirs(counts_dir, exist_ok=True)
-        rank = os.environ.get("RANK", "0")
-        Path(counts_dir, f"rank_{rank}.json").write_text(
-            json.dumps(dict(cuda_build.LAUNCHES)))
-        if tool == "pred_vmn":
-            Path(counts_dir, f"rank_{rank}_stats.json").write_text(
-                json.dumps(stats))
+            gc.collect()                # the last run's tensors freed
+            cuda_build.LAUNCHES.clear()
+            torch.cuda.reset_peak_memory_stats()
+            with mock.patch.object(fam_kernel, "fam_window_logits",
+                                   recording):
+                mod.main(run, stats)
+            stats.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         fam_shapes=shapes)
+            write(counts_dir, f"rank_{rank}.json", dict(cuda_build.LAUNCHES))
+            write(counts_dir, f"rank_{rank}_stats.json", stats)
 
 
 def stream_tflop(model, in_channels: int) -> tuple[float, float]:
@@ -2491,16 +2562,29 @@ def pred_single_adobe_phase(tmp, cuda_build, edt_kernel) -> dict:
     return res
 
 
+def live_share(folder) -> float:
+    """The share of the pixels of a sweep's ``*_pred.png`` mattes that lie
+    strictly between 0 and 255."""
+    from tcvom_tpu_torch.utils.imageio import IMREAD_GRAYSCALE, imread
+
+    a = np.stack([imread(str(p), IMREAD_GRAYSCALE)
+                  for p in sorted(folder.glob("clip_b/*_pred.png"))])
+    return float(((a > 0) & (a < 255)).mean())
+
+
 def pred_vmn_backbone_phase(name: str, tmp, root, cuda_build):
     """tools/pred_vmn.py with ``vmn_<name>`` (IndexNet or GCA, random
     weights through a .pth) on the same clip, the samples read in this
-    process (the spawned loader's start is timed in the FBA sweep).
-    Returns the launches."""
+    process (the spawned loader's start is timed in the FBA sweep); at
+    least LIVE_SHARE of the pred PNGs' pixels strictly between 0 and 255.
+    Returns the launches and the sweep as the space phase's reference:
+    (its .pth, its folder, its seconds by phase and peak)."""
     from tcvom_tpu_torch.tools import pred_vmn
 
     ckpt = random_checkpoint("vmn_" + name, tmp)
     save = tmp / f"pred_vmn_{name}"
     cuda_build.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
     t0, sweep = time.perf_counter(), {}
     losses = pred_vmn.main(["--model", name, "--data", str(root),
                             "--load", str(ckpt), "--trimap", "medium",
@@ -2509,12 +2593,14 @@ def pred_vmn_backbone_phase(name: str, tmp, root, cuda_build):
                             "--n_threads", "0"], sweep)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    sweep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     counts = dict(cuda_build.LAUNCHES)
     written = sorted(p.name for p in (save / "clip_b").iterdir())
+    share = live_share(save)
     emit(phase=f"pred_vmn_{name}", samples=4, shape=[1, 3, H, W],
          launches=counts, losses=losses, sweep_s=secs,
          s_per_sample=secs / 4, sweep_phases_s=sweep, written=len(written),
-         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+         live_share=share, max_memory_allocated_gib=sweep["peak_gib"])
     if counts != {"fam_window_logits": 4}:
         fail(f"pred_vmn {name} launch counts {counts}, want 4")
     if not all(np.isfinite(v) for v in losses.values()):
@@ -2522,7 +2608,10 @@ def pred_vmn_backbone_phase(name: str, tmp, root, cuda_build):
     if written != [f"{i:05d}_{k}.png" for i in range(4)
                    for k in ("pred", "tri")]:
         fail(f"pred_vmn {name} wrote {written}")
-    return counts
+    if share < LIVE_SHARE:
+        fail(f"pred_vmn {name}: {share} of the mattes' pixels live, under "
+             f"{LIVE_SHARE}")
+    return counts, (ckpt, save, sweep)
 
 
 def probe_modules() -> dict:
@@ -2552,10 +2641,12 @@ def main():
                     help="(the DDP phases' runs) run tcvom_tpu_torch.tools."
                          "TOOL with the other arguments instead; train "
                          "validates from its first epoch")
-    ap.add_argument("--launches", metavar="DIR",
+    ap.add_argument("--launches", metavar="DIR", nargs="+",
                     help="with --tool: write this rank's kernel launches "
                          "to DIR/rank_<RANK>.json (and pred_vmn's stats "
-                         "to DIR/rank_<RANK>_stats.json)")
+                         "to DIR/rank_<RANK>_stats.json), one DIR for each "
+                         "run (pred_vmn takes several, their arguments "
+                         "separated by --then)")
     ap.add_argument("--no_tf32", action="store_true",
                     help="with --tool: no TF32 in cuDNN or cuBLAS, as this "
                          "script's own runs")
@@ -2711,15 +2802,14 @@ def main():
         torch.cuda.empty_cache()
 
     # -- 11. pred_single (DIM, GCA) and pred_vmn (IndexNet, GCA) on the clip ------
-    vmn_backbone_counts = {}
+    vmn_backbone_counts, space_refs = {}, {}
     for name in ("dim", "gca"):
         pred_single_phase(name, tmp, root, cuda_build)
     adobe_res = pred_single_adobe_phase(tmp, cuda_build, edt_kernel)
     torch.cuda.empty_cache()
     for name in ("index", "gca"):
-        torch.cuda.reset_peak_memory_stats()
-        vmn_backbone_counts[name] = pred_vmn_backbone_phase(name, tmp, root,
-                                                            cuda_build)
+        vmn_backbone_counts[name], space_refs[name] = \
+            pred_vmn_backbone_phase(name, tmp, root, cuda_build)
 
     # -- 12. the logits kernel at the other backbones' training widths -------
     train_width_res = check_fam_train_widths(fam, fam_kernel)
@@ -2738,8 +2828,10 @@ def main():
     # -- 15. data-parallel training and pred_vmn under torch.distributed.run --
     ddp_counts = train_ddp_phases(tmp)
     ddp_counts["pred_vmn_ddp"] = pred_vmn_ddp_phase(tmp, root)
-    band_res = check_fam_band(fam, fam_kernel)
-    space_counts = pred_vmn_space_phase(tmp, root, save, vmn_sweep)
+    band_res = {c: check_fam_band(fam, fam_kernel, c) for c in BAND_WIDTHS}
+    space_counts = pred_vmn_space_phase(
+        tmp, root, dict(space_refs, fba=(tmp / "vmn_fba.pth", save,
+                                         vmn_sweep)))
 
     # -- 16. TRAIN.BF16 and --remat of each video trainer, and the tool -----
     bf16_counts, remat_counts = {}, {}
@@ -2857,8 +2949,10 @@ def main():
              launches=space_counts["fba"]["edt_row"],
              **edt_train_res["pred_vmn"])] + [
         dict(logits_c, path=f"pred_vmn_space_{name}", replaces=val_d,
-             launches=space_counts[name]["fam_window_logits"], **band_res)
-        for name in ("fba", "dim")]
+             launches=space_counts[name]["fam_window_logits"],
+             **band_res[c])
+        for name, c in (("fba", 256), ("dim", 256), ("index", 32),
+                        ("gca", 128))]
     kernels += [dict(edt, path=path, **r) for path, r in adobe_res.items()]
     train_res = {"fba": logits_res[(6, 64, 64, 256)],
                  "dim": train_width_res[(24, 64, 64, 256)],

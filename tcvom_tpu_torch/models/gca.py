@@ -14,6 +14,12 @@ VMN.
 The JAX package's TPU-only ``fast`` branches (the block-packed shortcut,
 stem and tail, ``tcvom_tpu/models/gca.py:122-133``, ``:156-170``,
 ``:253-264``) are not ported: this is the branch it runs elsewhere.
+
+Band-aware (``parallel.space``): the spectral-norm convs and transposed
+convs, the pools and resizes take their halos or stay within the band,
+the guidance head reflects at the frame's edges only
+(:func:`guidance`), and the attention core reads the whole frame
+(``ops/gca_attention.py``).
 """
 from __future__ import annotations
 
@@ -24,7 +30,10 @@ import torch.nn.functional as F
 from tcvom_tpu_torch.models.layers import (BatchNorm, Conv2d, EncoderDecoder,
                                            SNConv2d)
 from tcvom_tpu_torch.ops.gca_attention import guided_attention_core
-from tcvom_tpu_torch.ops.image import reflection_pad, resize_nearest
+from tcvom_tpu_torch.ops.image import (avg_pool_2x2, reflection_pad,
+                                       resize_nearest)
+from tcvom_tpu_torch.parallel import space
+
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
@@ -35,6 +44,37 @@ class _ReflectionPad1(nn.Module):
 
     def forward(self, x):
         return reflection_pad(x, 1)
+
+
+class _AvgPool2(nn.Module):
+    """``nn.AvgPool2d(2, 2)``: slot 0 of a stride-2 block's downsample."""
+
+    def forward(self, x):
+        return avg_pool_2x2(x)
+
+
+class _Upsample2(nn.Module):
+    """``nn.Upsample(scale_factor=2, mode="nearest")``: slot 0 of a
+    stride-2 block's upsample."""
+
+    def forward(self, x):
+        return resize_nearest(x, (2 * x.shape[-2], 2 * x.shape[-1]))
+
+
+def guidance(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """The guidance head: (reflection pad 1, SN conv stride 2 without
+    padding, ReLU, BatchNorm) three times. In band mode the pad is the
+    band's window, halo rows within the frame and the reflection at its
+    edges (``ops/image.py::reflection_pad``), and its conv runs on that
+    window as on a whole tensor: bit for bit the frame's rows."""
+    for i in range(0, len(head), 4):
+        pad, conv, *rest = head[i:i + 4]
+        x = pad(x)
+        with space.whole():
+            x = conv(x)
+        for m in rest:
+            x = m(x)
+    return x
 
 
 class GuidedCxtAtten(nn.Module):
@@ -70,7 +110,7 @@ class EncBasicBlock(nn.Module):
         self.conv2 = SNConv2d(planes, planes, 3, 1, 1)
         self.bn2 = BatchNorm(planes)
         self.downsample = nn.Sequential(
-            nn.AvgPool2d(2, stride), SNConv2d(inplanes, planes, 1),
+            _AvgPool2(), SNConv2d(inplanes, planes, 1),
             BatchNorm(planes)) if stride != 1 else None
 
     def forward(self, x):
@@ -95,8 +135,7 @@ class DecBasicBlock(nn.Module):
         self.conv2 = SNConv2d(inplanes, planes, 3, 1, 1)
         self.bn2 = BatchNorm(planes)
         self.upsample = nn.Sequential(
-            nn.Upsample(scale_factor=2, mode="nearest"),
-            SNConv2d(inplanes, planes, 1), BatchNorm(planes)
+            _Upsample2(), SNConv2d(inplanes, planes, 1), BatchNorm(planes)
         ) if stride != 1 else None
 
     def forward(self, x):
@@ -155,7 +194,7 @@ class GCAEncoder(nn.Module):
         out = F.relu(self.bn1(self.conv1(x)))
         x1 = F.relu(self.bn2(self.conv2(out)))                   # H/2, 32
         out = F.relu(self.bn3(self.conv3(x1)))                   # H/4, 64
-        im_fea = self.guidance_head(x[:, :3])                    # H/8, 128
+        im_fea = guidance(self.guidance_head, x[:, :3])          # H/8, 128
         unknown = resize_nearest(x[:, 4:5], (x.shape[-2] // 8,
                                              x.shape[-1] // 8))
         x2 = self.layer1(out)                                    # H/4, 64

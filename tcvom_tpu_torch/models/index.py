@@ -6,16 +6,21 @@ index maps, ``x <- idx_en * x`` then ``4 * avg_pool2d(x, 2, 2)``, and the
 decoder upsamples with ``idx_de * nearest_resize`` (reference
 models/Index/net.py, hlindex.py, hlaspp.py, hlconv.py). Module names are
 the reference's ``state_dict`` keys.
+
+Band-aware (``parallel.space``): the convs take their halos, the index
+maps, pools and resizes stay within the band, and the ASPP's global pool
+sums over every band (:meth:`ASPP.pooled`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from tcvom_tpu_torch.models.layers import (BatchNorm, Conv2d, Dropout,
                                            EncoderDecoder, conv_bn_relu6)
-from tcvom_tpu_torch.ops.image import pixel_shuffle, resize_nearest
+from tcvom_tpu_torch.ops.image import (adaptive_avg_pool, avg_pool_2x2,
+                                       pixel_shuffle, resize_nearest)
+from tcvom_tpu_torch.parallel import space
 
 # (expand ratio, out channels, blocks) of layer1..layer7
 _LAYER_CFG = ((1, 16, 1), (6, 24, 2), (6, 32, 3), (6, 64, 4), (6, 96, 3),
@@ -76,6 +81,13 @@ class _ASPPBranch(nn.Module):
         return self.atrous_conv(x)
 
 
+class _GlobalAvgPool(nn.Module):
+    """``nn.AdaptiveAvgPool2d(1)``: slot 0 of the ASPP's pooled branch."""
+
+    def forward(self, x):
+        return adaptive_avg_pool(x, 1)
+
+
 class ASPP(nn.Module):
     """ASPP at OS 32 (reference hlaspp.py:87-135): a 1x1 branch, three
     depthwise-separable branches at dilations 2, 4 and 8, and a global
@@ -92,15 +104,23 @@ class ASPP(nn.Module):
                 Conv2d(inp, inp, 3, padding=d, dilation=d, groups=inp,
                           bias=False), BatchNorm(inp), nn.ReLU6(),
                 *conv_bn_relu6(inp, 256, 1)))
-        self.global_avg_pool = nn.Sequential(nn.AdaptiveAvgPool2d(1),
+        self.global_avg_pool = nn.Sequential(_GlobalAvgPool(),
                                              *conv_bn_relu6(inp, 256, 1))
         self.bottleneck_conv = conv_bn_relu6(5 * 256, oup, 1)
         self.dropout = Dropout(0.5)
 
+    def pooled(self, x: torch.Tensor) -> torch.Tensor:
+        """The global-average branch, ``[N, 256, 1, 1]``. In band mode the
+        pool sums over every band and its map is whole on every rank: the
+        conv, BatchNorm and ReLU6 run on it as on one process."""
+        g = self.global_avg_pool[0](x)
+        with space.whole():
+            return self.global_avg_pool[1:](g)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [self.aspp1(x), self.aspp2(x), self.aspp3(x),
                     self.aspp4(x)]
-        g = self.global_avg_pool(x)
+        g = self.pooled(x)
         branches.append(g.expand(-1, -1, x.shape[-2], x.shape[-1]))
         return self.dropout(self.bottleneck_conv(torch.cat(branches, dim=1)))
 
@@ -126,7 +146,7 @@ class IndexMattingEncoder(nn.Module):
         # (reference net.py:199-224): the decoder reads the weighted map
         idx_en, idx_de = getattr(self, f"index{li}")(h)
         h = idx_en * h
-        return 4.0 * F.avg_pool2d(h, 2, 2), h, idx_de
+        return 4.0 * avg_pool_2x2(h), h, idx_de
 
     def forward(self, x: torch.Tensor) -> dict:
         l0p, l0, idx0_de = self._index_pool(self.layer0(x), 0)

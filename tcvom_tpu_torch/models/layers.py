@@ -119,16 +119,38 @@ def _like(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
     return None if p is None else p.to(x.dtype)
 
 
-def _banded_conv(conv: nn.Conv2d, x: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor | None,
-                 bands: space.Bands) -> torch.Tensor:
-    """``conv``'s convolution of this rank's band of a band-split ``x``
-    (``parallel.space``): the rows its band of the output reads, halos
-    from the other bands included, with no padding on H."""
-    x = bands.window(x, conv.kernel_size[0], conv.stride[0],
-                     conv.dilation[0], conv.padding[0])
-    return F.conv2d(x, weight, bias, conv.stride, (0, conv.padding[1]),
-                    conv.dilation, conv.groups)
+def _banded_conv(x: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor | None, bands: space.Bands,
+                 stride: tuple[int, int], padding: tuple[int, int],
+                 dilation: tuple[int, int] = (1, 1),
+                 groups: int = 1) -> torch.Tensor:
+    """``F.conv2d(x, weight, bias, stride, padding, dilation, groups)`` of
+    this rank's band of a band-split ``x`` (``parallel.space``): the rows
+    its band of the output reads, halos from the other bands included,
+    with no padding on H."""
+    x = bands.window(x, weight.shape[-2], stride[0], dilation[0], padding[0])
+    return F.conv2d(x, weight, bias, stride, (0, padding[1]), dilation,
+                    groups)
+
+
+def _banded_conv_transpose(x: torch.Tensor, weight: torch.Tensor,
+                           bands: space.Bands, stride: int,
+                           padding: int) -> torch.Tensor:
+    """``F.conv_transpose2d(x, weight, None, 2, 1)`` (kernel 4) of this
+    rank's band of a band-split ``x``: the band with one row above and one
+    below (the other bands' rows, zero outside the frame, which adds
+    nothing to a transposed conv), transposed with no padding on H, and
+    its output cropped to the band's ``2h`` rows: rows ``[3, 3 + 2h)``
+    (output row ``o`` of the padded call is global row ``o + 2 lo - 3``)."""
+    if (weight.shape[-2], stride, padding) != (4, 2, 1):
+        raise ValueError(f"band mode transposes (kernel, stride, padding) = "
+                         f"(4, 2, 1) only, not ({weight.shape[-2]}, "
+                         f"{stride}, {padding})")
+    h = x.shape[-2]
+    lo, hi, _ = bands.span(h)
+    x = bands.rows(x, lo - 1, hi + 1)
+    y = F.conv_transpose2d(x, weight, None, stride, (0, padding))
+    return y[..., 3:3 + 2 * h, :]
 
 
 class Conv2d(nn.Conv2d):
@@ -140,7 +162,8 @@ class Conv2d(nn.Conv2d):
         weight, bias = _like(self.weight, x), _like(self.bias, x)
         bands = space.current()
         if bands is not None:
-            return _banded_conv(self, x, weight, bias, bands)
+            return _banded_conv(x, weight, bias, bands, self.stride,
+                                self.padding, self.dilation, self.groups)
         return self._conv_forward(x, weight, bias)
 
 
@@ -155,7 +178,8 @@ class WSConv2d(nn.Conv2d):
         bias = _like(self.bias, x)
         bands = space.current()
         if bands is not None:
-            return _banded_conv(self, x, weight, bias, bands)
+            return _banded_conv(x, weight, bias, bands, self.stride,
+                                self.padding, self.dilation, self.groups)
         return F.conv2d(x, weight, bias, self.stride, self.padding,
                         self.dilation, self.groups)
 
@@ -412,7 +436,11 @@ class SNConv2d(nn.Module):
     ``v`` are stored in the f32 buffers.
 
     The transposed conv is ``F.conv_transpose2d`` on the IOHW weight, the
-    JAX package's ``conv_transpose_torch``."""
+    JAX package's ``conv_transpose_torch``.
+
+    Band-aware (``parallel.space``), with the weight and sigma of the
+    whole frame: the conv takes its halo rows from the other bands, the
+    transposed conv (GCA's (4, 2, 1) only) one row from each side."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, transpose: bool = False):
@@ -458,6 +486,13 @@ class SNConv2d(nn.Module):
         if self.training and not recomputing():
             self.power_iteration(dt)
         w = (self.module.weight_bar.to(dt) / self.sigma(dt)).to(x.dtype)
+        bands = space.current()
         if self.transpose:
+            if bands is not None:
+                return _banded_conv_transpose(x, w, bands, self.stride,
+                                              self.padding)
             return F.conv_transpose2d(x, w, None, self.stride, self.padding)
+        if bands is not None:
+            return _banded_conv(x, w, None, bands, (self.stride,) * 2,
+                                (self.padding,) * 2)
         return F.conv2d(x, w, None, self.stride, self.padding)

@@ -27,6 +27,13 @@ pass.)
 The self-correlation mask is not built: ``-1e4 * mm[n]`` is added on the
 correlation's diagonal, the same function without the JAX package's
 ``[hw, N]`` one-hot (266 MB at 1088x1920).
+
+In band mode (``parallel.space``) every query reads every patch of the
+frame: the ranks gather the guidance features, the unknown map and alpha
+whole, each computes the scales, the mask and the bank on the whole
+frame, and the correlation, the softmax and the reconstruction only for
+its band's query rows and one more row on each side, which the
+overlap-add reads; the result is cropped to the band.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from tcvom_tpu_torch.models.layers import at_least_f32
+from tcvom_tpu_torch.parallel import space
 
 
 def extract_patches_reflect(x: torch.Tensor, kernel: int,
@@ -81,12 +89,40 @@ def guided_attention_core(f_down: torch.Tensor, alpha: torch.Tensor,
     resolution; ``alpha`` ``[B, Ca, 2h, 2w]``: the features to reconstruct
     from; ``unknown_down`` ``[B, 1, h, w]``: the unknown region at the
     guidance resolution (read only with ``has_unknown``). Returns the
-    reconstruction ``[B, Ca, 2h, 2w]`` in f32 (f64 for f64 inputs)."""
+    reconstruction ``[B, Ca, 2h, 2w]`` in f32 (f64 for f64 inputs). In
+    band mode all three are this rank's bands, and so is the result."""
+    bands = space.current()
+    if bands is None:
+        return _core(f_down, alpha, unknown_down, softmax_scale, has_unknown)
+    h = f_down.shape[-2]
+    lo, hi, height = bands.span(h)
+    if alpha.shape[-2] != 2 * h:
+        raise ValueError(f"alpha's {alpha.shape[-2]} rows are not twice "
+                         f"the guidance's {h}")
+    f_down, alpha = (bands.gather_bands(t, -2) for t in (f_down, alpha))
+    if has_unknown:
+        unknown_down = bands.gather_bands(unknown_down, -2)
+    rows = (max(lo - 1, 0), min(hi + 1, height))
+    out = _core(f_down, alpha, unknown_down, softmax_scale, has_unknown,
+                rows)
+    return out[..., 2 * (lo - rows[0]):2 * (hi - rows[0]), :]
+
+
+def _core(f_down: torch.Tensor, alpha: torch.Tensor,
+          unknown_down: torch.Tensor, softmax_scale: float,
+          has_unknown: bool, rows: tuple[int, int] | None = None
+          ) -> torch.Tensor:
+    """:func:`guided_attention_core` on whole frames, for the queries of
+    guidance rows ``rows`` (``[r0, r1)``, default all): the output rows
+    ``[2 r0, 2 r1)``, of which the first and the last lack the
+    overlap-add's terms from the query rows beyond ``rows``."""
     b, _, h, w = f_down.shape
+    r0, r1 = rows or (0, h)
     x = extract_patches_reflect(f_down, 3, 1)                 # [B, 9Cf, N]
     norm = torch.linalg.vector_norm(at_least_f32(x), dim=1, keepdim=True)
     bank = (at_least_f32(x) / norm.clamp_min(1e-4)).to(x.dtype)
-    corr = _bmm_f32(x.transpose(1, 2), bank)                  # [B, hw, N]
+    queries = x[..., r0 * w:r1 * w]                           # [B, 9Cf, q]
+    corr = _bmm_f32(queries.transpose(1, 2), bank)            # [B, q, N]
 
     if has_unknown:
         # per-patch unknown-ness and the global scales (ops.py:135-156)
@@ -102,11 +138,13 @@ def guided_attention_core(f_down: torch.Tensor, alpha: torch.Tensor,
         mm = corr.new_ones((b, h * w))
         scale = torch.full_like(mm, softmax_scale)
     corr.mul_(scale[:, None, :])
-    # the self-correlation mask, on the unknown patches only
-    corr.diagonal(dim1=1, dim2=2).add_(mm, alpha=-1e4)
+    # the self-correlation mask, on the unknown patches only: query p
+    # (global index r0 * w + p) against its own patch
+    corr.diagonal(offset=r0 * w, dim1=1, dim2=2).add_(
+        mm[:, r0 * w:r1 * w], alpha=-1e4)
     att = torch.softmax(corr, dim=-1)
     del corr
 
     apat = extract_patches_reflect(alpha, 4, 2)              # [B, 16Ca, N]
-    z = _bmm_f32(apat, att.to(alpha.dtype).transpose(1, 2))  # [B, 16Ca, hw]
-    return overlap_add_stride2_k4(z, (h, w)) / 4.0
+    z = _bmm_f32(apat, att.to(alpha.dtype).transpose(1, 2))  # [B, 16Ca, q]
+    return overlap_add_stride2_k4(z, (r1 - r0, w)) / 4.0

@@ -3,17 +3,19 @@
 The resizes and pools the models use take NCHW tensors. The JAX versions
 were written to equal torch's own operators, so here they are those
 operators: ``F.interpolate``, ``F.max_pool2d``, ``F.adaptive_avg_pool2d``,
-``F.pixel_shuffle`` and ``F.pad`` (GCA's :func:`reflection_pad`). DIM's
-argmax pool keeps its index as the in-window position (uint8), as the JAX
-one does, not as torch's flat int64 (:func:`max_pool_argmax_2x2`).
+``F.avg_pool2d``, ``F.pixel_shuffle`` and ``F.pad`` (GCA's
+:func:`reflection_pad`). DIM's argmax pool keeps its index as the
+in-window position (uint8), as the JAX one does, not as torch's flat
+int64 (:func:`max_pool_argmax_2x2`).
 
 In band mode (``parallel.space``: the input is this rank's horizontal
 band of each frame) the resizes and pools that couple rows take their
 halos from the other bands: :func:`max_pool` and :func:`resize_bilinear`
-(x2) read rows across the band's edges, :func:`adaptive_avg_pool` sums
-its bins over every band and returns the whole pooled map; the nearest
-resize and the 2x2 argmax pool and unpool stay within the band, which
-they check.
+(x2) read rows across the band's edges, :func:`reflection_pad` takes
+them too and reflects at the frame's edges only, :func:`adaptive_avg_pool`
+sums its bins over every band and returns the whole pooled map; the
+nearest resize, the pixel shuffle, the 2x2 average pool and the 2x2
+argmax pool and unpool stay within the band, which they check.
 
 The functions of the training stack (:func:`avg_pool`, :func:`unfold`,
 :func:`image_gradient`, :func:`dilate_by_radius`) and of the metrics
@@ -145,16 +147,37 @@ def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(n, c, 2 * h, 2 * w)
 
 
+def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2, stride-2 average pool of ``[N, C, H, W]`` (``nn.AvgPool2d(2,
+    2)``). Within the band in band mode."""
+    _local(x, x.shape[-2] // 2)
+    return F.avg_pool2d(x, 2, 2)
+
+
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """``[N, C*r*r, H, W] -> [N, C, H*r, W*r]``: channel ``c*r*r + dy*r +
-    dx`` goes to offset (dy, dx) of channel c."""
+    dx`` goes to offset (dy, dx) of channel c. Within the band in band
+    mode."""
+    _local(x, x.shape[-2] * r)
     return F.pixel_shuffle(x, r)
 
 
 def reflection_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Reflect-pad H and W of ``[N, C, H, W]`` by ``pad``
-    (``nn.ReflectionPad2d``: the edge row is not repeated)."""
-    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    (``nn.ReflectionPad2d``: the edge row is not repeated).
+
+    In band mode the band's rows with ``pad`` more on each side: the
+    neighbouring bands' rows at an inner edge, the reflection only at
+    the frame's top and bottom; W is whole and reflects as before. The
+    result is the window that a following padding-0 op reads for this
+    band of its output, no band itself: that op runs under
+    ``space.whole()`` (GCA's guidance head, ``models/gca.py``)."""
+    bands = space.current()
+    if bands is None:
+        return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    lo, hi, _ = bands.span(x.shape[-2])
+    x = bands.rows(x, lo - pad, hi + pad, fill="reflect")
+    return F.pad(x, (pad, pad, 0, 0), mode="reflect")
 
 
 def _channels_last_op(fn, x: torch.Tensor) -> torch.Tensor:

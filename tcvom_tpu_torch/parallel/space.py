@@ -13,8 +13,9 @@ resize and the OS-8 grid divide evenly inside each band). Under
 and take what they need from the other bands:
 
 - :meth:`Bands.rows`: global rows ``[lo, hi)`` of a band-split tensor,
-  zero (or ``fill``) outside the frame: the convolutions' and pools'
-  halos, and FAM's keys;
+  zero (or ``fill``, or the frame's reflection) outside the frame: the
+  convolutions' and pools' halos, GCA's reflection padding, and FAM's
+  keys;
 - :meth:`Bands.window`: the rows a sliding window (a conv, a pool) reads
   for this band of its output;
 - :meth:`Bands.sum_over_bands`: a sum over the bands (GroupNorm's
@@ -136,9 +137,12 @@ class Bands:
     # -- the exchanges -------------------------------------------------------
 
     def rows(self, x: torch.Tensor, lo: int, hi: int,
-             fill: float = 0.0) -> torch.Tensor:
+             fill: float | str = 0.0) -> torch.Tensor:
         """Global rows ``[lo, hi)`` (axis -2) of the band-split ``x``,
-        ``fill`` outside ``[0, height)``. ``lo`` and ``hi`` lie alike about
+        ``fill`` outside ``[0, height)``; with ``fill="reflect"`` the
+        frame's rows reflected about its edge rows instead (row -1 is row
+        1, row ``height`` row ``height - 2``: ``nn.ReflectionPad2d``).
+        ``lo`` and ``hi`` lie alike about
         every rank's band (``lo - band lo`` and ``hi - band hi`` are the
         same on each), so that every rank of the group makes the same
         exchange.
@@ -162,8 +166,10 @@ class Bands:
         self._all_reduce("rows", buf)
         # each global row's place in src = cat(x, every rank's top and
         # bottom slots, a fill row); a bottom slot is filled from its end
+        reflect = fill == "reflect"
         src = torch.cat([x, buf.movedim(-2, 2).flatten(0, 2).movedim(0, -2),
-                         torch.full_like(x[..., :1, :], fill)], dim=-2)
+                         torch.full_like(x[..., :1, :],
+                                         0.0 if reflect else fill)], dim=-2)
         place = {}
         for j, (a, b) in enumerate(self.bounds):
             a, b, base = a // f, b // f, b_hi - b_lo + 2 * j * halo
@@ -171,10 +177,12 @@ class Bands:
                 place[a + t] = base + t
                 place[b - 1 - t] = base + 2 * halo - 1 - t
         place.update((g, g - b_lo) for g in range(b_lo, b_hi))
-        outside = src.shape[-2] - 1
+        outside, height = src.shape[-2] - 1, self.height // f
         idx = []
         for g in range(lo, hi):
-            if g not in place and 0 <= g < self.height // f:
+            if reflect and not 0 <= g < height:
+                g = -g if g < 0 else 2 * (height - 1) - g
+            if g not in place and 0 <= g < height:
                 raise ValueError(f"row {g} lies beyond the halo of {self}")
             idx.append(place.get(g, outside))
         idx = torch.tensor(idx, device=x.device)
@@ -182,10 +190,10 @@ class Bands:
 
     def window(self, x: torch.Tensor, kernel: int, stride: int = 1,
                dilation: int = 1, padding: int = 0,
-               fill: float = 0.0) -> torch.Tensor:
+               fill: float | str = 0.0) -> torch.Tensor:
         """The rows of the band-split ``x`` that a sliding window over H
         (``kernel``, ``stride``, ``dilation``, ``padding``, with ``fill``
-        as its padding) reads for this rank's band of its output, to be
+        as its padding, as in :meth:`rows`) reads for this rank's band of its output, to be
         run with no padding on H: ``[o_lo * stride - padding, (o_hi - 1) *
         stride - padding + dilation * (kernel - 1) + 1)`` for the output
         band ``[o_lo, o_hi)``. The op must keep the layout: its output has

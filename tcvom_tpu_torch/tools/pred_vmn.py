@@ -12,12 +12,12 @@ sweep; the losses are summed over the ranks, and rank 0 writes loss.log
 once every rank is done. ``--dist_backend gloo`` for two ranks on one
 card.
 
-``--space S`` (``--model fba`` or ``dim``; N a multiple of S) splits each
-frame's H axis over S ranks (``parallel.space``): the N ranks form N / S
-data groups of S consecutive ranks, each group sweeps every (N / S)-th
-batch, and each rank of a group computes one horizontal band of every
-frame (the preprocessing and the losses whole on each). The group's first
-rank writes the PNGs and adds the group's losses. On S cards::
+``--space S`` (any model; N a multiple of S) splits each frame's H axis
+over S ranks (``parallel.space``): the N ranks form N / S data groups of
+S consecutive ranks, each group sweeps every (N / S)-th batch, and each
+rank of a group computes one horizontal band of every frame (the
+preprocessing and the losses whole on each). The group's first rank
+writes the PNGs and adds the group's losses. On S cards::
 
     python -m torch.distributed.run --standalone --nproc_per_node 2 \
         -m tcvom_tpu_torch.tools.pred_vmn --model fba --space 2 ...
@@ -42,8 +42,6 @@ from tcvom_tpu_torch.tools.common import (MODELS, add_device_arg, init_ranks,
                                           load_model)
 from tcvom_tpu_torch.utils.logging import print_loss_dict
 
-# the models whose every row-coupling op is band-aware (parallel.space)
-SPACE_MODELS = ("fba", "dim")
 LOSS_NAMES = {"L_alpha": "L1", "L_comp": "L2", "L_grad": "L3",
               "L_dt": "L_dt", "L_att": "L_att"}
 
@@ -63,8 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--image_shape", type=int, nargs=2, default=(1088, 1920),
                    help="padded network resolution (1080 %% 32 != 0)")
     p.add_argument("--space", type=int, default=1,
-                   help="split each frame's H axis over this many ranks "
-                        "(--model fba or dim)")
+                   help="split each frame's H axis over this many ranks")
     add_device_arg(p, distributed=True)
     return p.parse_args(argv)
 
@@ -88,11 +85,6 @@ def main(argv=None, stats: dict | None = None) -> dict:
     if args.space < 1:
         raise ValueError(f"--space {args.space}: a space group has at least "
                          "one rank")
-    if args.space > 1 and args.model not in SPACE_MODELS:
-        raise NotImplementedError(
-            f"--space for --model {args.model} (IndexNet's ASPP pool and "
-            "index blocks, GCA's guided attention, reflection pad and "
-            "transposed conv over bands): ROADMAP.md Queue 1 item 12b")
     with init_ranks(args):
         return _sweep(args, stats)
 

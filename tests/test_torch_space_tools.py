@@ -13,11 +13,15 @@ tool, on a fake VideoMatting108 tree (one validation clip of 3 samples,
   one at pool 5 moves the one-process f32 sweep's alphas by 0.017 from
   its f64 sweep, and the banded f32 sweep's by 1.6e-5), which the
   one-level bound does not admit. ``test_torch_space.py`` holds DIM's
-  banded f32 step against JAX's.
+  banded f32 step against JAX's;
+- ``--model index`` (published widths, calibrated weights) on 2 ranks, in
+  f32;
+- ``--model gca`` (published widths, spectral norms converged, calibrated
+  weights) on 2 ranks, in f64 as DIM (its attention amplifies f32
+  rounding, ``test_torch_gca_model.py``).
 
 Each run writes the one-process file list, PNGs within one level and at
-least 99.9 % identical, and loss.log within rtol 1e-5. ``--model index``
-and ``--model gca`` refuse ``--space`` and name ROADMAP item 12b."""
+least 99.9 % identical, and loss.log within rtol 1e-5."""
 import contextlib
 import os
 import sys
@@ -29,7 +33,8 @@ import torch
 
 from tcvom_tpu_torch.models import full_model as TFM
 from tcvom_tpu_torch.models.registry import (build_model,
-                                             calibrate_random_weights)
+                                             calibrate_random_weights,
+                                             converge_spectral_norms)
 from tcvom_tpu_torch.infer import predict
 from tcvom_tpu_torch.tools import make_fake_dataset, pred_vmn
 from tcvom_tpu_torch.utils.checkpoint import save_weights
@@ -38,7 +43,9 @@ from test_torch_dist import torchrun, wait_all
 
 HW = (64, 96)
 # (model, ranks): one space group, and two data groups of two
-RUNS = (("fba", 2), ("fba", 4), ("dim", 2))
+RUNS = (("fba", 2), ("fba", 4), ("dim", 2), ("index", 2), ("gca", 2))
+# the models whose runs are in f64 (in_f64): the rest in f32
+F64 = ("dim", "gca")
 
 
 def _args(files, model: str, save, *extra):
@@ -66,17 +73,20 @@ def in_f64():
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
-    """The fake tree and both models' .pth (DIM's calibrated on a clip of
-    the tree's size: random DIM weights give mattes of ~1e-5)."""
+    """The fake tree and the models' .pth (all but FBA's calibrated on a
+    clip of the tree's size: random DIM weights give mattes of ~1e-5;
+    GCA's spectral norms converged first)."""
     tmp = tmp_path_factory.mktemp("space_tools")
     make_fake_dataset.make(str(tmp / "vmd"), frames=3, hw=HW, seed=9)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        for name in ("vmn_fba", "vmn_dim"):
+        for name in ("vmn_fba", "vmn_dim", "vmn_index", "vmn_gca"):
             model = build_model(name, agg_window=3, layers=(1, 1, 1, 1),
                                 device="cpu")
-            if name == "vmn_dim":
+            if name == "vmn_gca":
+                converge_spectral_norms(model)
+            if name != "vmn_fba":
                 rng = np.random.RandomState(3)
                 a = np.zeros((1, 3) + HW + (1,), np.float32)
                 a[:, :, 16:48, 24:72] = 255
@@ -100,16 +110,16 @@ def sweeps(files):
     """{(model, ranks): (the one-process folder, the ranks' folder)}: the
     three launches run while this process sweeps each model once."""
     procs = [torchrun(
-        "tcvom_tpu_torch.tools.pred_vmn" if model == "fba"
-        else os.path.abspath(__file__),
+        os.path.abspath(__file__) if model in F64
+        else "tcvom_tpu_torch.tools.pred_vmn",
         _args(files, model, files / f"{model}{n}", "--space", 2), n=n)
         for model, n in RUNS]
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        pred_vmn.main(_args(files, "fba", files / "fba1"))
-        with in_f64():
-            pred_vmn.main(_args(files, "dim", files / "dim1"))
+        for model in sorted({m for m, _ in RUNS}):
+            with in_f64() if model in F64 else contextlib.nullcontext():
+                pred_vmn.main(_args(files, model, files / f"{model}1"))
     finally:
         torch.set_num_threads(threads)
     wait_all(procs, 600)
@@ -141,12 +151,6 @@ def test_space_sweep_writes_the_one_process_files(sweeps, model, n):
     assert sorted(got) == sorted(want) and want["L_total"] > 0
     for k, v in want.items():
         np.testing.assert_allclose(got[k], v, rtol=1e-5, err_msg=k)
-
-
-@pytest.mark.parametrize("model", ["index", "gca"])
-def test_space_refuses_index_and_gca(files, model):
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        pred_vmn.main(_args(files, model, files / "refused", "--space", 2))
 
 
 def test_space_needs_whole_space_groups(files):

@@ -3,8 +3,8 @@ depth (the tools build the depth an FBA checkpoint holds): pred_test over a
 root of videos with --shard (and GCA's VMN on one folder), pred_vmn (FBA,
 IndexNet, GCA) then calc_metric on a fake VideoMatting108 tree with the
 zlib PNG codec standing in for OpenCV, pred_single (FBA, DIM with --vis,
-GCA) and its Adobe-DIM sweep (FBA with --vis, DIM), and the flags that are
-not ported yet."""
+GCA) and its Adobe-DIM sweep (FBA with --vis, DIM), the flags that are not
+ported yet, and memory_probe's recorder on a fake allocator."""
 import argparse
 import json
 import os
@@ -172,12 +172,6 @@ def test_pred_single_adobe(ckpts, tmp_path, one_thread, model):
 
 
 def test_tools_raise_for_what_is_not_ported(ckpts, tmp_path):
-    base = ["--data", str(tmp_path), "--load", ckpts["fba"], "--trimap",
-            "medium"] + CPU
-    # --space for IndexNet and GCA (FBA's and DIM's: test_torch_space*.py)
-    for model in ("index", "gca"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*12b"):
-            pred_vmn.main(["--model", model, "--space", "2"] + base)
     # a directory (the JAX package's orbax checkpoint) is not read
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pred_test.main(["--model", "gca", "--vmn", "--load", str(tmp_path),
@@ -223,3 +217,53 @@ def test_tools_print_their_help(tool, capsys):
     with pytest.raises(SystemExit) as e:
         tool.main(["--help"])
     assert e.value.code == 0 and "--device" in capsys.readouterr().out
+
+
+def test_memory_probe_puts_peak_rises_down_to_calls(monkeypatch):
+    """``tools/memory_probe.py``'s recorder on a fake allocator: a rise
+    inside a call goes to that call, with the bytes allocated at its start
+    and end; a rise between two calls goes to the work after the first;
+    rises under the threshold are not recorded."""
+    from tcvom_tpu_torch.tools.memory_probe import GIB, PeakRecorder
+
+    mem = {"now": 0, "peak": 0}
+
+    def alloc(n):
+        mem["now"] += n
+        mem["peak"] = max(mem["peak"], mem["now"])
+
+    class Workspace(torch.nn.Module):
+        def forward(self, x):
+            alloc(3 * GIB)
+            alloc(-3 * GIB + 2 ** 20)
+            return x
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.a, self.conv, self.b = (torch.nn.Identity(), Workspace(),
+                                         torch.nn.Identity())
+
+        def forward(self, x):
+            x = self.conv(self.a(x))
+            alloc(5 * GIB)
+            alloc(-5 * GIB)
+            return self.b(x)
+
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda: mem["peak"])
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda: mem["now"])
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    rec = PeakRecorder(GIB // 2)
+    hooks = (torch.nn.modules.module.register_module_forward_pre_hook(rec.pre),
+             torch.nn.modules.module.register_module_forward_hook(rec.post))
+    try:
+        rec.reset()
+        Net()(torch.zeros(2, 3))
+    finally:
+        for h in hooks:
+            h.remove()
+    assert [(e["where"], e["rise_gib"], e["start_gib"]) for e in rec.events
+            ] == [("Net.conv -> [2, 3]", 3.0, 0.0),
+                  ("after Net.conv, before Net.b", 2.0 + 2 ** -10, None)]
+    assert rec.events[0]["end_gib"] == 2 ** -10
