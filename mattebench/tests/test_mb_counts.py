@@ -1,0 +1,102 @@
+"""The yardstick's counts against counts worked by hand at small shapes."""
+from __future__ import annotations
+
+import json
+
+import torch
+
+from mattebench import counts, reference
+from mattebench.tests.tiny import REPO
+
+
+def test_peaks_are_the_data_sheet():
+    assert counts.HBM_BYTES_PER_S == 3.35e12
+    assert counts.PEAK_FLOPS == {"bfloat16": 989e12, "float32": 67e12}
+    assert counts.bound_s(3.35e12, 1.0, 989e12) == 1.0
+    assert counts.bound_s(1.0, 989e12, 989e12) == 1.0
+
+
+def test_fam_counts_by_hand():
+    # 3 x 3 grid, window 3, 2 channels, the whole grid unknown: corners see
+    # 4 in-frame neighbours (themselves included), edges 6, the centre 9
+    mask = torch.ones(1, 3, 3)
+    nbytes, ops = counts.fam_counts(mask, 2, 3, 2)
+    assert nbytes == (3 * 9 * 2 + 9) * 2
+    assert ops == 4 * 2 * (4 * 4 + 4 * 6 + 9)
+    # only the centre unknown, two rows of the batch
+    mask = torch.zeros(2, 3, 3)
+    mask[:, 1, 1] = 1
+    nbytes, ops = counts.fam_counts(mask, 2, 3, 4)
+    assert nbytes == (3 * 18 * 2 + 18) * 4
+    assert ops == 2 * 4 * 2 * 9
+
+
+def test_fam_mask_is_the_unknown_region_at_the_grid():
+    tri = torch.zeros(1, 16, 16, 1, dtype=torch.uint8)
+    tri[0, 0:8, 8:16] = 128
+    tri[0, 8:16, 0:8] = 255
+    mask = counts.fam_mask(tri, (2, 2))
+    assert mask.tolist() == [[[False, True], [False, False]]]
+
+
+def test_edt_counts_by_hand():
+    assert counts.edt_rows(4, 1088) == 8704
+    assert counts.edt_counts(10, 7) == (8 * 70, 16 * 70)
+
+
+def test_flop_per_frame_by_hand():
+    """Every convolution of FBA (one block a stage) at 64 x 64, as 2 x
+    multiply-adds, at the grid of its output."""
+    cfg = json.loads((REPO / "mattebench/configs/vmn_fba.json").read_text())
+    cfg["layers"] = [1, 1, 1, 1]
+    h = w = 64
+
+    def grid(name: str) -> int:
+        if name.startswith("encoder.conv1"):
+            return (h // 2) * (w // 2)
+        if name.startswith("encoder.layer1"):
+            return (h // 4) * (w // 4)
+        if name.startswith("encoder.layer2.0.conv1"):
+            return (h // 4) * (w // 4)
+        if name.startswith("decoder.ppm."):
+            s = (1, 2, 3, 6)[int(name.split(".")[2])]
+            return s * s
+        if name.startswith("decoder.conv_up2"):
+            return (h // 4) * (w // 4)
+        if name.startswith("decoder.conv_up3"):
+            return (h // 2) * (w // 2)
+        if name.startswith("decoder.conv_up4"):
+            return h * w
+        return (h // 8) * (w // 8)
+
+    enc = head = 0
+    for name, shape in reference.spec(cfg).items():
+        if len(shape) != 4:
+            continue
+        flop = 2 * shape[0] * shape[1] * shape[2] * shape[3] * grid(name)
+        if name.startswith(("decoder.conv_up2", "decoder.conv_up3",
+                            "decoder.conv_up4")):
+            head += flop
+        else:
+            enc += flop
+    assert counts.flop_per_frame(cfg, h, w) == (float(enc), float(head))
+
+
+def test_gca_count_holds_the_attention_core():
+    """GCA's encode count grows by the attention core's two products of
+    N x N positions (N = h w / 256 at OS 16): at 128 x 128 against 64 x 64,
+    convolutions x4, the core's products x16."""
+    cfg = json.loads((REPO / "mattebench/configs/vmn_gca.json").read_text())
+    small, _ = counts.flop_per_frame(cfg, 64, 64)
+    large, _ = counts.flop_per_frame(cfg, 128, 128)
+
+    def core(hw: int) -> float:
+        n = (hw // 16) ** 2
+        # correlation [n, 9 * 64] x [9 * 64, n]; reconstruction
+        # [16 * 128, n] x [n, n]; twice an encode (encoder, decoder)
+        return 2 * (2.0 * n * 9 * 64 * n + 2.0 * 16 * 128 * n * n)
+
+    rest_small = small - core(64)
+    rest_large = large - core(128)
+    # the spectral norms' matrix-vector products do not grow with the frame
+    assert abs(rest_large - 4 * rest_small) < 1e-3 * rest_large
