@@ -2993,8 +2993,13 @@ def profile_steps(step, steps: int, path: str, phase: str):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the program's ``tcvom.*`` ranges can also be listed as device-side
+    # annotations spanning the kernels they enclose: left out, as
+    # ``key_averages().table`` leaves them out of its own total
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("tcvom.")]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=40)

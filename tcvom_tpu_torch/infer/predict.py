@@ -10,6 +10,7 @@
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import queue
@@ -24,6 +25,7 @@ from tcvom_tpu_torch.models import full_model as FM
 from tcvom_tpu_torch.utils.device import resolve_device
 from tcvom_tpu_torch.utils.imageio import (IMREAD_COLOR, IMREAD_GRAYSCALE,
                                            imread, imwrite)
+from tcvom_tpu_torch.utils.trace import span
 
 TRIMAP_DILATION = {"narrow": 5, "medium": 12, "wide": 20}  # pred_vmn.py:70-75
 
@@ -145,56 +147,63 @@ class StreamingPredictor:
         """One frame's cached state: the decoder head's inputs, the FAM
         projections (q, k, v), the unknown mask and the paste inputs."""
         cfg = self.cfg
-        tri_raw = torch.as_tensor(tri, device=self.device)
-        img = torch.as_tensor(img, device=self.device).float()
-        tri = tri_raw.float()
-        pre = FM.preprocess_eval(img, tri, cfg)
-        inputs = _nchw(torch.cat([pre["imgs"], pre["tris"]], dim=-1))
-        # only FBA's head reads the raw image and the 2-channel trimap
-        extras = ((_nchw(pre["scaled_imgs"]), _nchw(pre["tris"][..., -2:]))
-                  if cfg.method == "fba" else None)
-        if self.dtype is not None:
-            inputs = inputs.to(self.dtype)
-            if extras is not None:
-                extras = tuple(t.to(self.dtype) for t in extras)
-        enc, qkv = self.model.encode_extract_qkv(inputs, extras)
-        out = dict(enc=type(self.model.decoder).prune_enc_head(enc),
-                   trimask=_nchw(pre["trimasks"]), **qkv)
-        if self.quantize:
-            # quantize-then-paste commutes with paste-then-quantize, so the
-            # paste runs on uint8 [B, H, W]
-            s = tri_raw[..., 0].float() * FM.IMG_SCALE
-            out["gt_u8"] = torch.floor(
-                torch.clamp(s, 0.0, 1.0) * 255.0).to(torch.uint8)
-            if cfg.dilate_radius is None:
-                # the unknown region is pointwise in tri: 0 < tri/255 < 1
-                out["paste_gate"] = (s > 0.0) & (s < 1.0)
+        with span("encode"):
+            with span("preprocess"):
+                tri_raw = torch.as_tensor(tri, device=self.device)
+                img = torch.as_tensor(img, device=self.device).float()
+                tri = tri_raw.float()
+                pre = FM.preprocess_eval(img, tri, cfg)
+                inputs = _nchw(torch.cat([pre["imgs"], pre["tris"]], dim=-1))
+                # only FBA's head reads the raw image and the 2-channel trimap
+                extras = ((_nchw(pre["scaled_imgs"]),
+                           _nchw(pre["tris"][..., -2:]))
+                          if cfg.method == "fba" else None)
+                if self.dtype is not None:
+                    inputs = inputs.to(self.dtype)
+                    if extras is not None:
+                        extras = tuple(t.to(self.dtype) for t in extras)
+            enc, qkv = self.model.encode_extract_qkv(inputs, extras)
+            # the paste inputs are encode's own work (no span of their own)
+            out = dict(enc=type(self.model.decoder).prune_enc_head(enc),
+                       trimask=_nchw(pre["trimasks"]), **qkv)
+            if self.quantize:
+                # quantize-then-paste commutes with paste-then-quantize, so
+                # the paste runs on uint8 [B, H, W]
+                s = tri_raw[..., 0].float() * FM.IMG_SCALE
+                out["gt_u8"] = torch.floor(
+                    torch.clamp(s, 0.0, 1.0) * 255.0).to(torch.uint8)
+                if cfg.dilate_radius is None:
+                    # the unknown region is pointwise in tri: 0 < tri/255 < 1
+                    out["paste_gate"] = (s > 0.0) & (s < 1.0)
+                else:
+                    # the dilated region (preprocess_eval) keeps the
+                    # network's alpha in the ring around the trimap's
+                    # unknown band
+                    out["paste_gate"] = pre["trimasks"][..., 0] > 0.5
             else:
-                # the dilated region (preprocess_eval) keeps the network's
-                # alpha in the ring around the trimap's unknown band
-                out["paste_gate"] = pre["trimasks"][..., 0] > 0.5
-        else:
-            out["gt_tri"] = tri * FM.IMG_SCALE
-            out["scaled_img"] = pre["scaled_imgs"]
-        return out
+                out["gt_tri"] = tri * FM.IMG_SCALE
+                out["scaled_img"] = pre["scaled_imgs"]
+            return out
 
     @torch.inference_mode()
     def decode(self, prev: dict, cur: dict, nxt: dict):
         """The matte of ``cur`` from its neighbours' keys."""
-        pred, _, _, _ = self.model.decode_window_qkv(
-            cur["enc"], cur, prev["k"], nxt["k"], cur["trimask"])
-        if self.quantize:
-            a8 = torch.floor(torch.clamp(pred[:, 0].float(), 0.0, 1.0)
-                             * 255.0).to(torch.uint8)
-            return torch.where(cur["paste_gate"], a8, cur["gt_u8"])
-        pred = pred.permute(0, 2, 3, 1)
-        mask = cur["trimask"].permute(0, 2, 3, 1) > 0.5
-        alpha = torch.where(mask, pred[..., 0:1], cur["gt_tri"])
-        if self.cfg.method == "fba" and self.fgbg:
-            f = torch.where(mask, pred[..., 1:4], cur["scaled_img"])
-            b = torch.where(mask, pred[..., 4:7], cur["scaled_img"])
-            return alpha, f, b
-        return alpha
+        with span("decode"):
+            pred, _, _, _ = self.model.decode_window_qkv(
+                cur["enc"], cur, prev["k"], nxt["k"], cur["trimask"])
+            with span("paste"):
+                if self.quantize:
+                    a8 = torch.floor(torch.clamp(pred[:, 0].float(), 0.0, 1.0)
+                                     * 255.0).to(torch.uint8)
+                    return torch.where(cur["paste_gate"], a8, cur["gt_u8"])
+                pred = pred.permute(0, 2, 3, 1)
+                mask = cur["trimask"].permute(0, 2, 3, 1) > 0.5
+                alpha = torch.where(mask, pred[..., 0:1], cur["gt_tri"])
+                if self.cfg.method == "fba" and self.fgbg:
+                    f = torch.where(mask, pred[..., 1:4], cur["scaled_img"])
+                    b = torch.where(mask, pred[..., 4:7], cur["scaled_img"])
+                    return alpha, f, b
+                return alpha
 
     def step(self, state, img, tri):
         """Feed one frame; returns (state, matte-or-None).
@@ -203,25 +212,27 @@ class StreamingPredictor:
         window is [f1, f0, f1], and :meth:`flush` emits the last frame's
         matte with [fN-2, fN-1, fN-2]. The matte returned by the i-th call
         (i >= 1) is for frame i-1."""
-        frame = self.encode(img, tri)
-        if state is None:
-            return ("first", frame), None
-        if state[0] == "first":
-            f0 = state[1]
-            return ({"k": f0["k"]}, frame), self.decode(frame, f0, frame)
-        prev, cur = state
-        out = self.decode(prev, cur, frame)
-        # a frame that has been the window center is only read as a
-        # neighbour (its key) afterwards
-        return ({"k": cur["k"]}, frame), out
+        with span("step"):
+            frame = self.encode(img, tri)
+            if state is None:
+                return ("first", frame), None
+            if state[0] == "first":
+                f0 = state[1]
+                return ({"k": f0["k"]}, frame), self.decode(frame, f0, frame)
+            prev, cur = state
+            out = self.decode(prev, cur, frame)
+            # a frame that has been the window center is only read as a
+            # neighbour (its key) afterwards
+            return ({"k": cur["k"]}, frame), out
 
     def flush(self, state):
         """Emit the final frame's matte (reflected next neighbour)."""
-        if state[0] == "first":       # single-frame clip
-            f = state[1]
-            return self.decode(f, f, f)
-        prev, cur = state
-        return self.decode(prev, cur, prev)
+        with span("flush"):
+            if state[0] == "first":       # single-frame clip
+                f = state[1]
+                return self.decode(f, f, f)
+            prev, cur = state
+            return self.decode(prev, cur, prev)
 
 
 # ---------------------------------------------------------------------------
@@ -291,13 +302,18 @@ def predict_test_folder(model, cfg: FM.TaskConfig, in_dir: str,
     writer); the producer's ``prod_read`` (PNG decode and pad) and
     ``prod_upload`` (pinning and queueing the host-to-device copy); the
     writer's ``writer_fetch`` (waiting for the matte on the host) and
-    ``writer_imwrite`` (PNG encode)."""
+    ``writer_imwrite`` (PNG encode). Each phase is also the span
+    ``tcvom.<phase>`` of a profiled run (``utils/trace.py``)."""
     dev = resolve_device(device)
     folder = TestFolder(in_dir)
     os.makedirs(out_dir, exist_ok=True)
     stats: dict = {"frames": len(folder)}
 
-    def acc(key, t0):
+    @contextlib.contextmanager
+    def phase(key):
+        t0 = time.perf_counter()
+        with span(key):
+            yield
         # each key is written by one thread only
         stats[key] = stats.get(key, 0.0) + (time.perf_counter() - t0)
 
@@ -306,7 +322,7 @@ def predict_test_folder(model, cfg: FM.TaskConfig, in_dir: str,
             raise ValueError("dtype selects the streaming (VMN) path's "
                              "compute type; single-frame models run in f32")
         return _predict_folder_single(model, cfg, folder, out_dir, progress,
-                                      dev, acc, stats)
+                                      dev, phase, stats)
 
     # host pipeline: a bounded prefetch thread decodes frame i+k while the
     # card mattes frame i (each PNG decoded once) and uploads it; a writer
@@ -327,12 +343,10 @@ def predict_test_folder(model, cfg: FM.TaskConfig, in_dir: str,
     def produce():
         try:
             for i in range(len(folder)):
-                t0 = time.perf_counter()
-                img, tri, hw, name = folder.read_frame(i)
-                acc("prod_read", t0)
-                t0 = time.perf_counter()
-                img, tri = upload(img), upload(tri)
-                acc("prod_upload", t0)
+                with phase("prod_read"):
+                    img, tri, hw, name = folder.read_frame(i)
+                with phase("prod_upload"):
+                    img, tri = upload(img), upload(tri)
                 q.put((img, tri, hw, name))
             q.put(None)
         except Exception as e:        # handed to the main loop, re-raised
@@ -347,29 +361,27 @@ def predict_test_folder(model, cfg: FM.TaskConfig, in_dir: str,
                 continue                # drain, so the main loop never blocks
             name, alpha, ready, (h, w) = item
             try:
-                t0 = time.perf_counter()
-                if ready is not None:
-                    ready.synchronize()
-                a = alpha.numpy()
-                acc("writer_fetch", t0)
-                t0 = time.perf_counter()
-                imwrite(os.path.join(out_dir, name + "_alpha.png"),
-                        a[0, :h, :w])
-                acc("writer_imwrite", t0)
+                with phase("writer_fetch"):
+                    if ready is not None:
+                        ready.synchronize()
+                    a = alpha.numpy()
+                with phase("writer_imwrite"):
+                    imwrite(os.path.join(out_dir, name + "_alpha.png"),
+                            a[0, :h, :w])
             except Exception as e:    # re-raised after the join
                 errors.append(e)
 
     def hand_over(out, name, hw):
-        t0 = time.perf_counter()
-        ready = None
-        if cuda:
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            out = host
-        wq.put((name, out, ready, hw))
-        acc("main_wqput", t0)
+        with phase("main_wqput"):
+            ready = None
+            if cuda:
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+                out = host
+            wq.put((name, out, ready, hw))
 
     writer = threading.Thread(target=consume, daemon=True)
     writer.start()
@@ -379,17 +391,15 @@ def predict_test_folder(model, cfg: FM.TaskConfig, in_dir: str,
     try:
         state, pending, i = None, [], 0
         while True:
-            t0 = time.perf_counter()
-            item = q.get()
-            acc("main_qget", t0)
+            with phase("main_qget"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, Exception):
                 raise item
             img, tri, hw, name = item
-            t0 = time.perf_counter()
-            state, out = sp.step(state, img, tri)
-            acc("main_step", t0)
+            with phase("main_step"):
+                state, out = sp.step(state, img, tri)
             pending.append((name, hw))
             if out is not None:
                 hand_over(out, *pending.pop(0))
@@ -406,33 +416,28 @@ def predict_test_folder(model, cfg: FM.TaskConfig, in_dir: str,
     return stats
 
 
-def _predict_folder_single(model, cfg, folder, out_dir, progress, dev, acc,
+def _predict_folder_single(model, cfg, folder, out_dir, progress, dev, phase,
                            stats):
     if next(model.parameters()).device != dev:
         model = copy.deepcopy(model).to(dev)
     model.eval()
     for i in range(len(folder)):
-        t0 = time.perf_counter()
-        item = folder[i]
-        acc("prod_read", t0)
-        t0 = time.perf_counter()
-        imgs, tris = (torch.from_numpy(item[k]).to(dev)[None].float()
-                      for k in ("imgs", "tris"))
-        acc("prod_upload", t0)
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            out = FM.forward_eval(model, imgs, tris, cfg)
-        alphas = out[0] if isinstance(out, tuple) else out
-        c = imgs.shape[1] // 2
-        acc("main_step", t0)
-        t0 = time.perf_counter()
-        a = alphas[0, c, ..., 0].cpu().numpy()
-        acc("writer_fetch", t0)
-        t0 = time.perf_counter()
-        h, w = item["orig_hw"]
-        imwrite(os.path.join(out_dir, item["name"] + "_alpha.png"),
-                np.uint8(np.clip(a[:h, :w], 0, 1) * 255))
-        acc("writer_imwrite", t0)
+        with phase("prod_read"):
+            item = folder[i]
+        with phase("prod_upload"):
+            imgs, tris = (torch.from_numpy(item[k]).to(dev)[None].float()
+                          for k in ("imgs", "tris"))
+        with phase("main_step"):
+            with torch.inference_mode():
+                out = FM.forward_eval(model, imgs, tris, cfg)
+            alphas = out[0] if isinstance(out, tuple) else out
+            c = imgs.shape[1] // 2
+        with phase("writer_fetch"):
+            a = alphas[0, c, ..., 0].cpu().numpy()
+        with phase("writer_imwrite"):
+            h, w = item["orig_hw"]
+            imwrite(os.path.join(out_dir, item["name"] + "_alpha.png"),
+                    np.uint8(np.clip(a[:h, :w], 0, 1) * 255))
         if progress:
             progress(i, len(folder))
     return stats

@@ -33,6 +33,7 @@ from tcvom_tpu_torch.ops.gca_attention import guided_attention_core
 from tcvom_tpu_torch.ops.image import (avg_pool_2x2, reflection_pad,
                                        resize_nearest)
 from tcvom_tpu_torch.parallel import space
+from tcvom_tpu_torch.utils.trace import span
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
@@ -91,11 +92,12 @@ class GuidedCxtAtten(nn.Module):
             BatchNorm(out_channels))
 
     def forward(self, f, alpha, unknown):
-        f = self.guidance_conv(f)
-        hw = (f.shape[-2] // 2, f.shape[-1] // 2)
-        y = guided_attention_core(resize_nearest(f, hw), alpha,
-                                  resize_nearest(unknown, hw))
-        return self.W(y.to(alpha.dtype)) + alpha
+        with span("gca_attention"):
+            f = self.guidance_conv(f)
+            hw = (f.shape[-2] // 2, f.shape[-1] // 2)
+            y = guided_attention_core(resize_nearest(f, hw), alpha,
+                                      resize_nearest(unknown, hw))
+            return self.W(y.to(alpha.dtype)) + alpha
 
 
 class EncBasicBlock(nn.Module):

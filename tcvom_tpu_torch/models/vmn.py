@@ -25,6 +25,7 @@ import torch.nn as nn
 from tcvom_tpu_torch.models.layers import Conv2d, EncoderDecoder, checkpointed
 from tcvom_tpu_torch.ops import fam as fam_ops
 from tcvom_tpu_torch.ops.image import resize_nearest
+from tcvom_tpu_torch.utils.trace import span
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -116,17 +117,24 @@ class VMN(EncoderDecoder):
     def encode_extract_qkv(self, images, extras=None):
         """Per-frame half: encoder, decoder feature-extract (OS=8) and the
         frame's FAM projections. Returns (enc, {"q", "k", "v"})."""
-        enc = _with_extras(self.encoder(images), extras)
-        q, k, v = self.fam.qkv(self.decoder(enc, mode="extract"))
+        with span("encoder"):
+            enc = _with_extras(self.encoder(images), extras)
+        with span("extract"):
+            feat = self.decoder(enc, mode="extract")
+        with span("qkv"):
+            q, k, v = self.fam.qkv(feat)
         return enc, {"q": q, "k": k, "v": v}
 
     def decode_window_qkv(self, enc_c, qkv_c, k_b, k_f, mask,
                           need_logits: bool = False):
         """Center-frame half from cached projections: FAM + decoder head.
         Returns (pred, attb, attf, small_mask)."""
-        agg, attb, attf, small = self.fam.aggregate(
-            qkv_c["q"], qkv_c["v"], k_b, k_f, mask, need_logits=need_logits)
-        pred = self.decoder(enc_c, mode="head", x=agg)
+        with span("fam"):
+            agg, attb, attf, small = self.fam.aggregate(
+                qkv_c["q"], qkv_c["v"], k_b, k_f, mask,
+                need_logits=need_logits)
+        with span("head"):
+            pred = self.decoder(enc_c, mode="head", x=agg)
         return pred, attb, attf, small
 
     def forward(self, images, masks, extras=None):
