@@ -6,19 +6,23 @@
 From the repo root, on a machine with a CUDA card and the CUDA toolkit:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
-2. build: both CUDA kernels from tcvom_tpu_torch/csrc, with ptxas's
+2. build: the CUDA kernels from tcvom_tpu_torch/csrc, with ptxas's
    register and shared-memory report and each kernel's SASS instruction
    count;
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (EDT row pass bit-exact; both FAM entries, out and
-   logits, f32 to 1e-5, bf16 to 2e-2), with CUDA-event times and the
-   card's bound for the same work;
+   logits, f32 to 1e-5, bf16 to 2e-2; GroupNorm with each of the main
+   path's epilogues, bf16, to 2^-7 (1 + |value|) of the f32 composition), with
+   CUDA-event times and the card's bound for the same work (GroupNorm's
+   two kernels also apart, by the profiler, each beside its own bytes
+   bound, and PyTorch's F.group_norm as its library time);
 4. the main path in f32 at full width (vmn_fba, 1088x1920, window 7,
    random weights from a seed): once through the kernels, once with the
    plain versions substituted; the uint8 mattes agree within one level;
    the decode's time;
 5. the main path in bf16, as users run it: the launch counts must equal
-   the encodes (EDT) and decodes (FAM); known trimap pixels pasted
+   the encodes (EDT) and decodes (FAM), and the GroupNorm kernels' each
+   GroupNorm call (FBA_NORMS a frame); known trimap pixels pasted
    exactly; the uint8 mattes against the plain versions' within
    BF16_STREAM (calibrated below); steady-state times and memory;
 6. the evaluation tools, on files in a temporary folder under build/:
@@ -191,6 +195,13 @@ BF16_BACKBONE = {"dim": {"max_level_diff": 8, "identical_share": 0.958},
 # pixels (trimap 128) in the streams (unknown_share), of every pixel of the
 # pred PNGs in the pred_vmn sweeps (live_share)
 LIVE_SHARE = 0.01
+# vmn_fba's GroupNorms at depth (3, 4, 6, 3): 59 in the per-frame half
+# (encoder and extract), 2 in the head; a forward with no gradient runs
+# each through the two group_norm kernels once (a stream step: an encode
+# and a decode). In pred_vmn --space only the PPM's 4 run whole on every
+# rank (parallel.space.whole), and so through the kernels.
+FBA_NORMS = 61
+FBA_PPM_NORMS = 4
 PEAK_OPS = {torch.float32: 67e12,             # f32 outside the tensor cores
             torch.bfloat16: 989e12,           # bf16 tensor cores, dense
             # an add or a min is one operation in one issue slot (the 67
@@ -375,9 +386,21 @@ def sass_counts(lib) -> dict[str, int]:
     return dict(zip(names, counts.values()))
 
 
-def plain_kernels(fam, edt_kernel):
-    """A context in which both kernels' plain versions stand in for them."""
+def with_norms(counts: dict, calls: int) -> dict:
+    """``counts`` with each GroupNorm kernel launched ``calls`` times."""
+    return (dict(counts, group_norm_stats=calls, group_norm_apply=calls)
+            if calls else dict(counts))
+
+
+def plain_kernels(fam, edt_kernel, group_norm: bool = True):
+    """A context in which the kernels' plain versions stand in for them
+    (GroupNorm's: the layer's plain ops). Without ``group_norm`` the
+    GroupNorm kernels stay: for the bf16 streams' holds against
+    BF16_STREAM, which FBA's random weights would otherwise fail on any
+    change of GroupNorm's rounding (PERF.md, kernel E)."""
     import contextlib
+
+    from tcvom_tpu_torch.ops import group_norm_kernel
 
     def plain_fam(q, k, mask, window, need_logits=False):
         out, lg = fam.fam_attention_ref(q, k, mask, window)
@@ -387,17 +410,25 @@ def plain_kernels(fam, edt_kernel):
     stack.enter_context(mock.patch.object(fam, "fam_attention", plain_fam))
     stack.enter_context(mock.patch.object(edt_kernel, "edt_row_pass",
                                           edt_kernel.edt_row_pass_ref))
+    if group_norm:
+        stack.enter_context(mock.patch.object(
+            group_norm_kernel, "group_norm_cuda",
+            group_norm_kernel.group_norm_ref))
     return stack
 
 
-def run_plain_stream(sp, frames, fam, edt_kernel, cuda_build):
-    """The stream through the plain versions of both kernels; it must
-    launch none."""
+def run_plain_stream(sp, frames, fam, edt_kernel, cuda_build,
+                     group_norm: bool = True):
+    """The stream through the plain versions of the kernels (see
+    ``plain_kernels``); it must launch none, or only the GroupNorm
+    kernels' FBA_NORMS a frame where they stay."""
     cuda_build.LAUNCHES.clear()
-    with plain_kernels(fam, edt_kernel):
+    with plain_kernels(fam, edt_kernel, group_norm):
         outs = run_stream(sp, frames)
-    if sum(cuda_build.LAUNCHES.values()):
-        fail(f"a plain run launched kernels: {dict(cuda_build.LAUNCHES)}")
+    want = with_norms({}, 0 if group_norm else len(frames) * FBA_NORMS)
+    if dict(cuda_build.LAUNCHES) != want:
+        fail(f"a plain run launched kernels: {dict(cuda_build.LAUNCHES)}, "
+             f"want {want}")
     return outs
 
 
@@ -629,6 +660,75 @@ def check_fam(fam, fam_kernel):
     return results
 
 
+# GroupNorm's timed shapes, bf16, with bn3's epilogue (ReLU after the
+# residual add): FBA's layer4 bn3 and its stem at batch 1, layer3's bn3 at
+# batch 4
+GN_SHAPES = ((1, 2048, 136, 240), (1, 64, 544, 960), (4, 1024, 136, 240))
+# the main path's other epilogues, held alike but not timed: LeakyReLU in
+# the PPM (its 6x6 and 1x1 grids) and conv_up3, none in layer2's downsample
+GN_EPILOGUES = (((1, 256, 6, 6), "leaky_relu"), ((1, 256, 1, 1), "leaky_relu"),
+                ((1, 256, 544, 960), "leaky_relu"), ((1, 512, 136, 240), None))
+
+
+def check_group_norm(group_norm_kernel):
+    """Kernel E (``group_norm_stats`` and ``group_norm_apply``) in bf16,
+    with bn3's epilogue at GN_SHAPES and the others at GN_EPILOGUES,
+    against the plain composition in f32 of the same bf16 inputs: within
+    2^-7 (1 + |value|), two bf16 ulps at 1. At GN_SHAPES timed by CUDA
+    events beside the bytes bound of the function (x and the residual
+    read, y written), each kernel apart by the profiler beside its own
+    (statistics: x read; apply: x and the residual read, y written), the
+    plain composition in bf16 and PyTorch's F.group_norm alone (library)."""
+    import torch.nn.functional as F
+
+    gk = group_norm_kernel
+    results = {}
+    for shape, act, residual in ([(s, "relu", True) for s in GN_SHAPES]
+                                 + [(s, a, False) for s, a in GN_EPILOGUES]):
+        g = torch.Generator(device="cuda").manual_seed(11)
+        x, r = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        r = r if residual else None
+        w = (torch.rand(shape[1], generator=g, device="cuda")
+             + 0.5).bfloat16()
+        b = torch.randn(shape[1], generator=g, device="cuda").bfloat16()
+
+        def kernel():
+            return gk.group_norm_cuda(x, 32, w, b, 1e-5, act, r)
+
+        got = kernel().float()
+        want = gk.group_norm_ref(x.float(), 32, w.float(), b.float(), 1e-5,
+                                 act, None if r is None else r.float())
+        err = (got - want).abs()
+        bad = (err > 2 ** -7 * (1 + want.abs())).sum().item()
+        del got, want
+        emit(phase="check", kernel="group_norm", shape=list(shape),
+             dtype="bfloat16", act=act, residual=residual,
+             tolerance="2^-7 (1 + |value|)", max_abs_err=err.max().item())
+        if bad:
+            fail(f"group_norm {shape} {act}: {bad} elements off")
+        if shape not in GN_SHAPES:
+            continue
+        nbytes = x.numel() * x.element_size()
+        ms = time_ms(kernel, 20)
+        stats_ms = device_ms(kernel, 10, "group_norm_stats")
+        apply_ms = device_ms(kernel, 10, "group_norm_apply")
+        b_ms, b_by = bound(3 * nbytes, 8 * x.numel(), torch.bfloat16)
+        results[shape] = dict(
+            shape=list(shape), dtype="bfloat16", max_abs_err=err.max().item(),
+            ms=ms, plain_ms=time_ms(lambda: gk.group_norm_ref(
+                x, 32, w, b, 1e-5, act, r), 20),
+            library_ms=time_ms(lambda: F.group_norm(x, 32, w, b, 1e-5), 20),
+            bound_ms=b_ms, bound_by=b_by)
+        emit(phase="time", kernel="group_norm", **results[shape],
+             bound_share=b_ms / ms, stats_ms=stats_ms,
+             stats_bound_share=nbytes / HBM_BYTES_PER_S * 1e3 / stats_ms,
+             apply_ms=apply_ms,
+             apply_bound_share=3 * nbytes / HBM_BYTES_PER_S * 1e3 / apply_ms)
+        del x, r, err
+    return results
+
+
 def check_fam_logits(fam, fam_kernel):
     """The logits-writing entry (replacing TPU kernels C and D) at the
     training step's [prev; next] batch (B*(S-2)*2 = 6 at 64x64), the
@@ -765,8 +865,9 @@ def pred_test_phase(model, tmp, step_ms, fam, edt_kernel, cuda_build):
     cuda_build.LAUNCHES.clear()
     _, first_wall, got = run("kernels")
     counts = dict(cuda_build.LAUNCHES)
-    if counts != {"edt_row": n, "fam_window": n}:
-        fail(f"pred_test launch counts {counts}, want {n} of each")
+    if counts != with_norms({"edt_row": n, "fam_window": n}, n * FBA_NORMS):
+        fail(f"pred_test launch counts {counts}, want {n} of each and "
+             f"{FBA_NORMS} a frame of each GroupNorm kernel")
     for i, matte in enumerate(got):
         tri = imageio.imread(f"{src}/{i:05d}_trimap.png",
                              imageio.IMREAD_GRAYSCALE)
@@ -775,10 +876,11 @@ def pred_test_phase(model, tmp, step_ms, fam, edt_kernel, cuda_build):
             fail(f"pred_test matte {matte.shape} {matte.dtype}")
         if not np.array_equal(matte[known], tri[known]):
             fail(f"pred_test matte {i}: known pixels differ from the trimap")
-    with plain_kernels(fam, edt_kernel):
+    # the GroupNorm kernels in both runs, as in the bf16 stream's hold
+    with plain_kernels(fam, edt_kernel, group_norm=False):
         cuda_build.LAUNCHES.clear()
         _, _, want = run("plain")
-        if sum(cuda_build.LAUNCHES.values()):
+        if dict(cuda_build.LAUNCHES) != with_norms({}, n * FBA_NORMS):
             fail(f"a plain run launched kernels: {dict(cuda_build.LAUNCHES)}")
     diff, same = hold_stream("pred_test", [torch.from_numpy(m) for m in want],
                              [torch.from_numpy(m) for m in got])
@@ -849,8 +951,10 @@ def pred_vmn_phase(model, tmp, cuda_build, profile_path=None):
     if profile_path:
         profile_steps(lambda: step(sample), 1, profile_path,
                       "profile_pred_vmn")
-    if counts != {"edt_row": 4, "fam_window_logits": 4}:
-        fail(f"pred_vmn launch counts {counts}, want 4 of each")
+    if counts != with_norms({"edt_row": 4, "fam_window_logits": 4},
+                            4 * FBA_NORMS):
+        fail(f"pred_vmn launch counts {counts}, want 4 of each and "
+             f"{FBA_NORMS} a sample of each GroupNorm kernel")
     if not all(np.isfinite(v) for v in losses.values()):
         fail(f"pred_vmn losses {losses}")
     if written != [f"{i:05d}_{k}.png" for i in range(4)
@@ -993,7 +1097,8 @@ def train_phase(fam, edt_kernel, cuda_build, profile_path=None):
     val_counts = dict(cuda_build.LAUNCHES)
     emit(phase="val_dt", shape=[6, 3, 544, 960], value=value.item(),
          launches=val_counts, ms=val_ms)
-    if val_counts != {"edt_row": 1, "fam_window_logits": 1}:
+    if val_counts != with_norms({"edt_row": 1, "fam_window_logits": 1},
+                                FBA_NORMS):
         fail(f"validation launch counts {val_counts}")
     if not np.isfinite(value.item()) or alpha_c.shape != (6, 544, 960, 1):
         fail(f"validation value {value.item()}, alpha {tuple(alpha_c.shape)}")
@@ -2207,8 +2312,10 @@ def pred_vmn_space_phase(tmp, root, refs: dict) -> dict:
                 or rel > rtol:
             fail(f"pred_vmn --space 2 --model {model}: PNGs {bad}, losses "
                  f"{got} against {want}")
-        want_counts = {"fam_window_logits": samples,
-                       "edt_row": samples if model == "fba" else 0}
+        want_counts = with_norms(
+            {"fam_window_logits": samples,
+             "edt_row": samples if model == "fba" else 0},
+            FBA_PPM_NORMS * samples if model == "fba" else 0)
         if any(rk["launches"].get(k, 0) != n for rk in ranks
                for k, n in want_counts.items()):
             fail(f"pred_vmn --space 2 --model {model}: launches "
@@ -2543,8 +2650,9 @@ def pred_single_adobe_phase(tmp, cuda_build, edt_kernel) -> dict:
              seconds=secs, s_per_sample=secs / n, launches=counts,
              written=shapes, vis=vis_shapes,
              row_pass_input=list(seen[0][0].shape) if seen else None)
-        if counts != {"edt_row": n}:
-            fail(f"{path} launch counts {counts}, want {n} edt_row")
+        if counts != with_norms({"edt_row": n}, n * FBA_NORMS):
+            fail(f"{path} launch counts {counts}, want {n} edt_row and "
+                 f"{FBA_NORMS} a sample of each GroupNorm kernel")
         if not all(np.isfinite(v) for v in out.values()):
             fail(f"{path} results {out}")
         if shapes != {f"{i:05d}_{k}": crops[i] for i in range(n)
@@ -2679,12 +2787,13 @@ def main():
     from tcvom_tpu_torch.infer.predict import StreamingPredictor
     from tcvom_tpu_torch.models.full_model import TaskConfig
     from tcvom_tpu_torch.models.registry import build_model
+    from tcvom_tpu_torch.models.layers import GroupNorm
     from tcvom_tpu_torch.ops import (cuda_build, distance, edt_kernel, fam,
-                                     fam_kernel)
+                                     fam_kernel, group_norm_kernel)
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = cuda_build.build(["edt_row", "fam_window"])
+    logs = cuda_build.build(["edt_row", "fam_window", "group_norm"])
     emit(phase="build", seconds=time.perf_counter() - t0,
          per_source={n: log["seconds"] for n, log in logs.items()})
     for name, log in logs.items():
@@ -2701,11 +2810,15 @@ def main():
     frames = make_frames(12)
     edt_res = check_edt(edt_kernel, distance, frames[0][1])
     fam_res = check_fam(fam, fam_kernel)
+    gn_res = check_group_norm(group_norm_kernel)
 
     # -- 4. main path, f32, kernels vs plain -----------------------------------
     cfg = TaskConfig(model="vmn_fba", agg_window=WINDOW)
     model = build_model("vmn_fba", agg_window=WINDOW,
                         generator=torch.Generator().manual_seed(0))
+    norms = sum(isinstance(m, GroupNorm) for m in model.modules())
+    if norms != FBA_NORMS:
+        fail(f"vmn_fba has {norms} GroupNorms, FBA_NORMS says {FBA_NORMS}")
     sp32 = StreamingPredictor(model, cfg, fgbg=False, quantize=True)
     cuda_build.LAUNCHES.clear()
     got = run_stream(sp32, frames[:4])
@@ -2717,7 +2830,8 @@ def main():
     want = run_plain_stream(sp32, frames[:4], fam, edt_kernel, cuda_build)
     diff, same = hold_stream("main_f32", want, got, launches=f32_counts,
                              decode_ms=dec32_ms)
-    if f32_counts != {"edt_row": 4, "fam_window": 4}:
+    if f32_counts != with_norms({"edt_row": 4, "fam_window": 4},
+                                4 * FBA_NORMS):
         fail(f"f32 launch counts {f32_counts}, want 4 encodes and 4 decodes")
     if diff > 1 or same < 0.999:
         fail("f32 mattes: kernels and plain versions disagree")
@@ -2732,9 +2846,16 @@ def main():
     counts = dict(cuda_build.LAUNCHES)
     n = len(frames)
     check_mattes(outs, frames, "bf16")
-    if counts != {"edt_row": n, "fam_window": n}:
+    if counts != with_norms({"edt_row": n, "fam_window": n}, n * FBA_NORMS):
         fail(f"bf16 launch counts {counts}, want {n} encodes and {n} decodes")
-    want = run_plain_stream(sp, frames, fam, edt_kernel, cuda_build)
+    # the FAM and EDT kernels against their plain versions, the GroupNorm
+    # kernels in both runs: FBA's random weights amplify any change of
+    # GroupNorm's rounding (the kernels round once where the plain ops in
+    # bf16 round twice) into whole flipped pixels (PERF.md, kernel E);
+    # GroupNorm is held by the f32 stream above, check_group_norm and its
+    # card tests
+    want = run_plain_stream(sp, frames, fam, edt_kernel, cuda_build,
+                            group_norm=False)
     diff, same = hold_stream("main_bf16", want, outs)
     if diff > BF16_STREAM["max_level_diff"] or \
             same < BF16_STREAM["identical_share"]:
@@ -2853,7 +2974,13 @@ def main():
                  replaces="tcvom_tpu/ops/fam_pallas.py:190")
     logits_c = dict(famk, name="fam_window_logits",
                     replaces="tcvom_tpu/ops/fam_pallas.py:38")
+    gn = dict(name="group_norm", route="cuda",
+              source="tcvom_tpu_torch/csrc/group_norm.cu",
+              replaces="none (XLA's GroupNorm, tcvom_tpu/models/layers.py)")
     kernels = [
+        dict(gn, path=path, launches=n["group_norm_stats"], **gn_res[shape])
+        for path, n in (("stream_bf16", counts), ("pred_test", pt_counts))
+        for shape in GN_SHAPES] + [
         dict(edt, path="stream_bf16", launches=counts["edt_row"], **edt_res),
         dict(edt, path="pred_test", launches=pt_counts["edt_row"], **edt_res),
         dict(edt, path="train", launches=train_counts["edt_row"],

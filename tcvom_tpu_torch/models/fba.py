@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from tcvom_tpu_torch.models.layers import (Conv2d, EncoderDecoder,
                                            GroupNorm32, WSConv2d,
@@ -28,22 +27,21 @@ class Bottleneck(nn.Module):
                  dilation: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = WSConv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = GroupNorm32(planes)
+        self.bn1 = GroupNorm32(planes, act="relu")
         self.conv2 = WSConv2d(planes, planes, 3, stride=stride,
                               padding=dilation, dilation=dilation, bias=False)
-        self.bn2 = GroupNorm32(planes)
+        self.bn2 = GroupNorm32(planes, act="relu")
         self.conv3 = WSConv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = GroupNorm32(planes * 4)
+        self.bn3 = GroupNorm32(planes * 4, act="relu")
         self.downsample = (nn.Sequential(
             WSConv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
             GroupNorm32(planes * 4)) if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.bn1(self.conv1(x))
+        out = self.bn2(self.conv2(out))
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        return self.bn3(self.conv3(out), identity)      # relu(bn3 + identity)
 
 
 def _layer(inplanes: int, planes: int, blocks: int, stride: int,
@@ -62,7 +60,7 @@ class FBAEncoder(nn.Module):
         super().__init__()
         self.conv1 = WSConv2d(input_chn, 64, 7, stride=2, padding=3,
                               bias=False)
-        self.bn1 = GroupNorm32(64)
+        self.bn1 = GroupNorm32(64, act="relu")
         self.layer1 = _layer(64, 64, layers[0], 1, (1, 1))
         self.layer2 = _layer(256, 128, layers[1], 2, (1, 1))
         # layer3/4: stride -> 1; first-block 3x3 dilation 1/2, rest 2/4
@@ -71,7 +69,7 @@ class FBAEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict:
         conv_out = [x]                                        # OS=1
-        h = F.relu(self.bn1(self.conv1(x)))
+        h = self.bn1(self.conv1(x))
         conv_out.append(h)                                    # OS=2
         h = max_pool(h, 3, 2, 1)
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
@@ -101,9 +99,15 @@ class _AdaptivePool(nn.Module):
         return adaptive_avg_pool(x, self.size)
 
 
+def _gn_lrelu(channels: int) -> list[nn.Module]:
+    """GroupNorm32 with the LeakyReLU(0.01) that follows it as its ``act``;
+    the Identity holds the LeakyReLU's place in the reference's
+    ``nn.Sequential``, whose indices name the ``state_dict`` keys."""
+    return [GroupNorm32(channels, act="leaky_relu"), nn.Identity()]
+
+
 def _conv_gn_lrelu(cin: int, cout: int) -> list[nn.Module]:
-    return [WSConv2d(cin, cout, 3, padding=1), GroupNorm32(cout),
-            nn.LeakyReLU(0.01)]
+    return [WSConv2d(cin, cout, 3, padding=1), *_gn_lrelu(cout)]
 
 
 class FBADecoder(nn.Module):
@@ -118,8 +122,8 @@ class FBADecoder(nn.Module):
     def __init__(self, pool_scales=(1, 2, 3, 6)):
         super().__init__()
         self.ppm = nn.ModuleList(nn.Sequential(
-            _AdaptivePool(s), WSConv2d(2048, 256, 1), GroupNorm32(256),
-            nn.LeakyReLU(0.01)) for s in pool_scales)
+            _AdaptivePool(s), WSConv2d(2048, 256, 1), *_gn_lrelu(256))
+            for s in pool_scales)
         self.conv_up1 = nn.Sequential(
             *_conv_gn_lrelu(2048 + 256 * len(pool_scales), 256),
             *_conv_gn_lrelu(256, 256))

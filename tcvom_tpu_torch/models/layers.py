@@ -31,6 +31,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from tcvom_tpu_torch import parallel
+from tcvom_tpu_torch.ops import group_norm_kernel
 from tcvom_tpu_torch.parallel import space
 
 
@@ -115,8 +116,9 @@ def ws_standardize(weight: torch.Tensor) -> torch.Tensor:
 
 
 def _like(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
-    """Parameter ``p`` in ``x``'s dtype (itself when it is already)."""
-    return None if p is None else p.to(x.dtype)
+    """Parameter ``p`` in ``x``'s dtype (itself when it is already, without
+    the cost of a ``to`` call on the host)."""
+    return p if p is None or p.dtype == x.dtype else p.to(x.dtype)
 
 
 def _banded_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -189,17 +191,42 @@ class GroupNorm(nn.GroupNorm):
     keeps the statistics in f32 for bf16 inputs, as the JAX package's
     ``_GroupNorm`` does.
 
+    ``act`` (None, ``"relu"`` or ``"leaky_relu"``) is the activation that
+    follows the norm, and ``forward``'s ``residual`` is added before it:
+    ``act(norm(x) + residual)``. On the card, with no gradient needed and
+    whole tensors, the hand-written kernels do all three
+    (``ops/group_norm_kernel.py``), and raise for what they do not take
+    (f64); on the CPU, under a gradient and in band mode they run as
+    separate ops.
+
     In band mode (``parallel.space``) each (sample, group) mean and
     variance is over every band: the sums and counts of this rank's band
     summed over the bands, the mean first and then the centred squares
     (two passes, for f32 at one-process accuracy), in at least f32."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 affine: bool = True, act: str | None = None):
+        if act not in group_norm_kernel.ACTS:
+            raise ValueError(f"act must be one of "
+                             f"{list(group_norm_kernel.ACTS)}, got {act!r}")
+        super().__init__(num_groups, num_channels, eps, affine)
+        self.act = act
+
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        weight, bias = _like(self.weight, x), _like(self.bias, x)
         bands = space.current()
-        if bands is not None:
-            return self._banded(x, bands)
-        return F.group_norm(x, self.num_groups, _like(self.weight, x),
-                            _like(self.bias, x), self.eps)
+        if bands is None and not group_norm_kernel.runs_plain(
+                x, weight, bias, residual):
+            # as PyTorch's own CUDA GroupNorm does: a channels-last input
+            # (the stem's convolution of the permuted frame) is made
+            # contiguous
+            return group_norm_kernel.group_norm_cuda(
+                x.contiguous(), self.num_groups, weight, bias, self.eps,
+                self.act, None if residual is None else residual.contiguous())
+        y = (self._banded(x, bands) if bands is not None else
+             F.group_norm(x, self.num_groups, weight, bias, self.eps))
+        return group_norm_kernel.epilogue(y, self.act, residual)
 
     def _banded(self, x: torch.Tensor, bands: space.Bands) -> torch.Tensor:
         xf = at_least_f32(x).reshape(x.shape[0], self.num_groups, -1)
@@ -215,9 +242,10 @@ class GroupNorm(nn.GroupNorm):
         return y.to(x.dtype)
 
 
-def GroupNorm32(channels: int) -> GroupNorm:
-    """GroupNorm(32, eps 1e-5) (FBA's ``norm``, models/FBA/layers_WS.py:26)."""
-    return GroupNorm(32, channels, eps=1e-5)
+def GroupNorm32(channels: int, act: str | None = None) -> GroupNorm:
+    """GroupNorm(32, eps 1e-5) (FBA's ``norm``, models/FBA/layers_WS.py:26),
+    followed by ``act``."""
+    return GroupNorm(32, channels, eps=1e-5, act=act)
 
 
 class EncoderDecoder(nn.Module):

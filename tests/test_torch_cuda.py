@@ -8,6 +8,7 @@ pytest worker collects the same tests).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tcvom_tpu_torch import parallel
 from tcvom_tpu_torch.infer.predict import StreamingPredictor
@@ -15,8 +16,9 @@ from tcvom_tpu_torch.models.full_model import TaskConfig, forward_eval
 from tcvom_tpu_torch.models.registry import (build_model,
                                              calibrate_random_weights,
                                              converge_spectral_norms)
+from tcvom_tpu_torch.models.layers import GroupNorm
 from tcvom_tpu_torch.ops import (cuda_build, edt_kernel, fam, fam_kernel,
-                                 gca_attention)
+                                 gca_attention, group_norm_kernel)
 from tcvom_tpu_torch.ops.image import max_pool_argmax_2x2, max_unpool_2x2
 
 pytestmark = pytest.mark.cuda
@@ -76,6 +78,92 @@ def test_edt_kernel_bit_exact_off_integers(dev, rng):
     got = edt_kernel.edt_row_pass_cuda(g2, 40)
     torch.cuda.synchronize()
     assert torch.equal(got, edt_kernel.edt_row_pass_ref(g2, 40))
+
+
+# -- GroupNorm (csrc/group_norm.cu) ------------------------------------------
+
+# (C, H, W) of every GroupNorm of vmn_fba at 1088x1920: the stem and
+# conv_up3 (OS 2); layer1 and conv_up2, layer2's first bn1 (OS 4); layer2's
+# other norms, layer3 and conv_up1, layer4 (OS 8); the PPM's 1, 2, 3 and 6
+# grids
+FBA_NORMS = [(64, 544, 960), (64, 272, 480), (256, 272, 480),
+             (128, 272, 480), (128, 136, 240), (512, 136, 240),
+             (256, 136, 240), (1024, 136, 240), (2048, 136, 240),
+             (256, 1, 1), (256, 2, 2), (256, 3, 3), (256, 6, 6)]
+EPILOGUES = [(act, res) for act in group_norm_kernel.ACTS
+             for res in (False, True)]
+
+
+def _hold_group_norm(dev, shape, groups, dtype, mean=0.0, spread=1.0,
+                     seed=0):
+    """The kernel on ``shape`` (and on a residual of it) with every
+    epilogue against the f64 plain version of its rounded inputs: f32
+    within relative 1e-5; bf16 within one ulp of the f64 value rounded to
+    bf16. Both are taken at the larger of the value and the terms it sums,
+    with one normalized unit (|normalized * gamma| + |gamma| + |beta| +
+    |residual|), for bf16 2^-8 of them: where the terms cancel, f32's own
+    rounding of a term, and of the mean (a share of gamma), outweighs an
+    ulp of the small sum."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device=dev) * spread
+         + mean).to(dtype)
+    res = torch.randn(shape, generator=g, device=dev).to(dtype)
+    weight = (torch.rand(c, generator=g, device=dev) + 0.5).to(dtype)
+    bias = torch.randn(c, generator=g, device=dev).to(dtype)
+    base = F.group_norm(x.double(), groups, weight.double(), bias.double(),
+                        1e-5)
+    per_c = (1, c) + (1,) * (x.dim() - 2)
+    terms = (base - bias.double().view(per_c)).abs() \
+        + (weight.double().abs() + bias.double().abs()).view(per_c)
+    cuda_build.LAUNCHES.clear()
+    for act, with_res in EPILOGUES:
+        r = res if with_res else None
+        got = group_norm_kernel.group_norm_cuda(x, groups, weight, bias,
+                                                1e-5, act, r)
+        want = group_norm_kernel.epilogue(
+            base, act, r.double() if with_res else None)
+        scale = terms + (res.double().abs() if with_res else 0)
+        if dtype == torch.float32:
+            limit = 1e-5 * torch.maximum(want.abs(), scale)
+            err = (got.double() - want).abs()
+        else:
+            rounded = want.to(dtype).double()
+            _, e = torch.frexp(torch.maximum(rounded.abs(), scale * 2 ** -8))
+            limit = torch.ldexp(torch.ones_like(rounded), e - 8)
+            err = (got.double() - rounded).abs()
+        bad = err > limit
+        assert not bad.any(), (act, with_res, bad.sum().item(),
+                               err.max().item())
+    assert cuda_build.LAUNCHES == {"group_norm_stats": len(EPILOGUES),
+                                   "group_norm_apply": len(EPILOGUES)}
+
+
+@pytest.mark.parametrize("chw", FBA_NORMS)
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_at_fba_shapes(dev, chw, n, dtype):
+    _hold_group_norm(dev, (n,) + chw, 32, dtype)
+
+
+@pytest.mark.parametrize("shape,groups", [
+    ((3, 6, 5, 7), 3),          # groups of 70 values: no 16-byte boundary
+    ((2, 4, 1, 1), 4),          # groups of one value
+    ((1, 3, 17, 3), 1),
+    ((1, 32, 129, 131), 32),    # several statistics blocks, odd groups
+    ((2, 64, 253, 255), 32),    # several apply tiles of odd channels
+    ((2, 6, 11), 2)])           # [N, C, L]
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_at_odd_shapes(dev, shape, groups, dtype):
+    _hold_group_norm(dev, shape, groups, dtype, seed=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_large_mean_small_spread(dev, dtype):
+    """Mean 1e3, spread 1e-2 (in bf16 every value rounds to 1000: a group
+    of zero variance)."""
+    _hold_group_norm(dev, (2, 256, 136, 240), 32, dtype, mean=1e3,
+                     spread=1e-2, seed=2)
 
 
 def _fam_inputs(rng, shape, dtype, dev):
@@ -278,6 +366,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, rng):
         edt_kernel.edt_row_pass(q[0, :, :, 0], 2)              # stride
     with pytest.raises(ValueError):
         edt_kernel.edt_row_pass(torch.zeros(4, 4, device=dev), 10 ** 5)
+    x = torch.randn(2, 8, 6, 5, device=dev)
+    w, b = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    cuda_build.LAUNCHES.clear()
+    for args, kwargs in [
+            ((x.transpose(2, 3), 4, w, b), {}),                  # layout
+            ((x.flatten()[1:241].view(1, 8, 6, 5), 4, w, b), {}),  # address
+            ((x.double(), 4, w.double(), b.double()), {}),       # dtype
+            ((x, 3, w, b), {}),                                  # groups
+            ((x, 4, w.bfloat16(), b), {}),                       # affine
+            ((x, 4, w[:4], b), {}),
+            ((x, 4, w, b), {"residual": x[:1]}),                 # residual
+            ((x, 4, w, b), {"act": "gelu"}),
+            ((x.cpu(), 4, w.cpu(), b.cpu()), {}),
+            ((x.clone().requires_grad_(), 4, w, b), {})]:        # gradient
+        with pytest.raises(ValueError):
+            group_norm_kernel.group_norm_cuda(*args, 1e-5, **kwargs)
+    assert not cuda_build.LAUNCHES
 
 
 def test_launch_counts(dev, rng):
@@ -288,8 +393,19 @@ def test_launch_counts(dev, rng):
     fam.fam_attention(q.requires_grad_(), k, m, 3)
     edt_kernel.edt_row_pass(torch.zeros(4, 8, device=dev), 2)
     edt_kernel.edt_row_pass_ref(torch.zeros(4, 8, device=dev), 2)
+    gn = GroupNorm(4, 8, act="relu").to(dev)
+    x = torch.randn(2, 8, 6, 5, device=dev)
+    with torch.no_grad():
+        gn(x)                                   # the kernel
+        gn(x, x)
+        with pytest.raises(ValueError):
+            gn(x.double())                      # f64: the kernel refuses
+    gn(x)                                       # a gradient: the plain ops
+    gn(x.bfloat16().requires_grad_())
+    group_norm_kernel.group_norm_ref(x, 4, None, None, 1e-5, "relu")
     assert cuda_build.LAUNCHES == {"fam_window": 1, "fam_window_logits": 2,
-                                   "edt_row": 1}
+                                   "edt_row": 1, "group_norm_stats": 2,
+                                   "group_norm_apply": 2}
 
 
 @pytest.mark.parametrize("name", ["vmn_fba", "vmn_dim", "vmn_index",
@@ -327,8 +443,12 @@ def test_stream_on_card_matches_cpu(dev, rng, name):
                 res.append(o.cpu().numpy())
         res.append(sp.flush(state).cpu().numpy())
         outs[where] = np.stack(res).astype(int)
+        # FBA: each of its GroupNorms once an encode (23) or a decode (2)
+        norms = 3 * sum(isinstance(m, GroupNorm) for m in model.modules())
         want = ({} if where == "cpu" else {"fam_window": 3} if
-                name != "vmn_fba" else {"fam_window": 3, "edt_row": 3})
+                name != "vmn_fba" else {"fam_window": 3, "edt_row": 3,
+                                        "group_norm_stats": norms,
+                                        "group_norm_apply": norms})
         assert cuda_build.LAUNCHES == want
     unknown = np.broadcast_to(tri[..., 0] == 128, outs["cpu"].shape)
     assert ((outs["cpu"][unknown] > 0) & (outs["cpu"][unknown] < 255)
