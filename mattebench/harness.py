@@ -1,12 +1,17 @@
 """One run of one cell: set-up, the timed window, the check, the record
 the metric readers read.
 
-Everything that belongs to a configuration, a traffic mix or a metric is
-found by name: ``BENCHMARK.json`` names the cell's configuration file and
-traffic mix (``mattebench/traffic/<mix>.json``, whose ``kind`` names the
-generator ``mattebench/traffic/<kind>.py``), and each metric is read by
+Everything that belongs to a configuration, a traffic mix, a kernel or a
+metric is found by name (``lookup.py``): ``BENCHMARK.json`` names the
+cell's configuration file and traffic mix (``mattebench/traffic/<mix>.json``,
+whose ``kind`` names the generator ``mattebench/traffic/<kind>.py``); the
+configuration's ``method`` names its reference model
+(``mattebench/reference/<method>.py``) and its ``kernels`` their work
+(``mattebench/kernels/<kernel>.py``); each metric is read by
 ``mattebench/metrics/<metric>.py`` (``read(record)``: a number, or None
-where it finds nothing to read).
+where it finds nothing to read), and a quantity split by the cells it is
+reported in, ``<metric>.<part>``, by that file where it has none of its
+own. All of it is looked for under the cell's root.
 
 The window drives ``tcvom_tpu_torch.infer.predict.StreamingPredictor``:
 each step uploads every stream's next uint8 frame and trimap from pinned
@@ -17,8 +22,6 @@ before; at each clip's end ``flush`` and a new clip.
 from __future__ import annotations
 
 import contextlib
-import functools
-import importlib.util
 import json
 import os
 import random
@@ -31,25 +34,13 @@ from pathlib import Path
 import torch
 
 from mattebench import check, counts, trace, weights
+from mattebench.lookup import HERE, Refused, load_module, package_module
 
 # share of the trimaps' unknown pixels whose matte must lie strictly
 # between 0 and 255 before a comparison of mattes says something
 # (chip_smoke.LIVE_SHARE)
 LIVE_SHARE = 0.01
 PROFILE_TRIES = 3
-
-
-class Refused(Exception):
-    """The run cannot give a result (printed, exit code not 0)."""
-
-
-def load_module(path: Path, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    if spec is None:
-        raise Refused(f"no module at {path}")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 class Cell:
@@ -77,10 +68,17 @@ class Cell:
         self.per_layer = [m for m in manifest["per_layer"]
                           if name in m.get("workloads", [name])
                           and m["moves"] in reported]
+        # a method or a kernel with no module refuses every run, at once
+        package_module("reference", self.config["method"], self.here)
+        for kernel in self.config["kernels"]:
+            package_module("kernels", kernel, self.here)
 
     def metric(self, spec: dict):
-        return load_module(self.here / "metrics" / f"{spec['name']}.py",
-                           "mattebench_metric_" + spec["name"].replace(".", "_"))
+        name = spec["name"]
+        path = self.here / "metrics" / f"{name}.py"
+        if not path.is_file():
+            path = self.here / "metrics" / f"{name.split('.')[0]}.py"
+        return load_module(path, "mattebench_metric_" + name.replace(".", "_"))
 
     def make_traffic(self, seed: int, device):
         kind = self.traffic["kind"]
@@ -235,6 +233,8 @@ class Program:
     (kept on the host for the reference) and the program's predictor;
     and the work it counts for the traced run."""
 
+    here = HERE     # where its kernels' work is found: its cell's root
+
     def __init__(self, cell: Cell, seed: int, device):
         dev = torch.device(device)
         config = cell.config
@@ -253,6 +253,7 @@ class Program:
             cuda_build.build(config["kernels"])
             phase("kernels")
         self.dev, self.config, self.params = dev, config, cell.traffic
+        self.here = cell.here
         self.traffic = traffic = cell.make_traffic(seed, dev)
         phase("traffic")
         sd = weights.make_state_dict(config, seed, dev, traffic.batch(0))
@@ -262,28 +263,19 @@ class Program:
         self.state_dict = {k: v.cpu() for k, v in sd.items()}
         del sd
 
-    @functools.cached_property
-    def fam_per_pool(self) -> list[tuple[float, float]]:
-        """Bytes and operations of the FAM call that decodes each pool
-        frame (both neighbours' rows, every stream)."""
-        tp, config = self.traffic, self.config
-        itemsize = torch.empty((), dtype=tp.dtype).element_size()
-        out = []
-        for p in range(tp.pool_frames):
-            mask = counts.fam_mask(tp.batch(p)[1], (tp.height // 8, tp.width // 8))
-            out.append(counts.fam_counts(torch.cat([mask, mask]),
-                                         config["fam_channels"],
-                                         config["agg_window"], itemsize))
-        return out
+    def kernels(self):
+        """The work modules of the configuration's kernels."""
+        return [package_module("kernels", k, self.here)
+                for k in self.config["kernels"]]
 
     def flop_per_matte(self) -> float:
         """FLOP of one matte: the reference's encode and head on the meta
-        device, and the FAM attention's operations over the pool's masks.
-        Only the traced run reads it (``step_mfu``)."""
+        device, and what the kernels compute beyond what that count sees
+        (FAM's attention). Only the traced run reads it (``step_mfu``)."""
         tp = self.traffic
         enc, head = counts.flop_per_frame(self.config, tp.height, tp.width)
-        fam = sum(o for _, o in self.fam_per_pool) / tp.pool_frames
-        return enc + head + fam / tp.streams
+        return enc + head + sum(k.flop_per_matte(self) for k in self.kernels()
+                                if hasattr(k, "flop_per_matte"))
 
     def warm_up(self, spans: bool) -> float:
         """Short clips through every path of the window (a clip's first
@@ -301,16 +293,8 @@ class Program:
     def work(self, encodes: int, frames_decoded: list) -> dict:
         """Bytes, operations and the peak they are held to, by kernel, of
         ``encodes`` encodes and the decodes of these clip frames."""
-        tp = self.traffic
-        fam = [self.fam_per_pool[tp.pool_index(f)] for f in frames_decoded]
-        out = {"fam_window": [sum(b for b, _ in fam), sum(o for _, o in fam),
-                              counts.PEAK_FLOPS[self.params["dtype"]]]}
-        if "edt_row" in self.config["kernels"]:
-            nbytes, ops = counts.edt_counts(
-                counts.edt_rows(tp.streams, tp.height), tp.width)
-            out["edt_row"] = [encodes * nbytes, encodes * ops,
-                              counts.PEAK_F32_ADD_MIN]
-        return out
+        return {name: k.work(self, encodes, frames_decoded)
+                for name, k in zip(self.config["kernels"], self.kernels())}
 
 
 class Sampler:

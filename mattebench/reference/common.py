@@ -1,5 +1,5 @@
-"""Plain PyTorch pieces of the matting eval path that both reference models
-use: the arithmetic policy, the layers, the eval preprocessing with FBA's
+"""Plain PyTorch pieces of the matting eval path that the reference models
+share: the arithmetic policy, the layers, the eval preprocessing with FBA's
 trimap encoding, the FAM window attention, the paste and the uint8
 quantization.
 
@@ -70,9 +70,29 @@ def matmul(ar: Arith, a, b):
     return torch.bmm(ar.op(a).to(ar.wide), ar.op(b).to(ar.wide))
 
 
-def group_norm(ar: Arith, x, weight, bias, groups: int = 32, eps=1e-5):
-    return F.group_norm(x.to(ar.dtype), groups, weight.to(ar.dtype),
-                        bias.to(ar.dtype), eps)
+_NORMS: list = [None]
+
+
+@contextlib.contextmanager
+def recording_norms():
+    """Inside, each :func:`group_norm` appends to the list this yields its
+    input's elements, bytes an element and whether it adds a residual."""
+    _NORMS[0] = []
+    try:
+        yield _NORMS[0]
+    finally:
+        _NORMS[0] = None
+
+
+def group_norm(ar: Arith, x, weight, bias, groups: int = 32, eps=1e-5,
+               residual=None):
+    """GroupNorm, then ``residual`` added where one is given (a residual
+    block's last norm)."""
+    x = x.to(ar.dtype)
+    if _NORMS[0] is not None:
+        _NORMS[0].append((x.numel(), x.element_size(), residual is not None))
+    y = F.group_norm(x, groups, weight.to(ar.dtype), bias.to(ar.dtype), eps)
+    return y if residual is None else y + residual
 
 
 @contextlib.contextmanager

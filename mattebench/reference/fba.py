@@ -9,7 +9,8 @@ F/B/alpha fusion. TCVOM (arXiv:2105.11427) splits the decoder after
 ``conv_up1`` (OS 8) and puts its FAM there, at 256 channels.
 
 ``spec`` gives the parameter table under the reference PyTorch code's
-``state_dict`` names; ``encode`` and ``head`` compute with any
+``state_dict`` names; ``prepare`` the input, with FBA's trimap encoding;
+``encode`` and ``head`` compute with any
 :class:`~mattebench.reference.common.Arith`.
 """
 from __future__ import annotations
@@ -17,8 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mattebench.reference.common import (Arith, conv, group_norm,
-                                         resize_bilinear)
+from mattebench.reference.common import (Arith, conv, group_norm, nchw,
+                                         preprocess, resize_bilinear)
 
 POOL_SCALES = (1, 2, 3, 6)
 TRIMAP_CHANNELS = 8
@@ -77,6 +78,17 @@ def spec(config: dict) -> dict[str, tuple[int, ...]]:
     return out
 
 
+def prepare(img_u8: torch.Tensor, tri_u8: torch.Tensor) -> dict:
+    """The 11-channel input ``x`` (normalized RGB, the 6 Gaussian distance
+    channels, the binary bg/fg maps), the ``extras`` the head reads (the
+    RGB image in [0, 1], the binary bg/fg maps) and the unknown mask
+    ``trimask``, NCHW f32, of uint8 frames and trimaps."""
+    pre = preprocess(img_u8, tri_u8, TRIMAP_CHANNELS)
+    return dict(x=nchw(torch.cat([pre["imgs"], pre["tris"]], dim=-1)),
+                extras=(nchw(pre["scaled"]), nchw(pre["tris"][..., -2:])),
+                trimask=nchw(pre["trimask"]))
+
+
 def _standardize(w: torch.Tensor) -> torch.Tensor:
     """Weight standardization: per output channel, minus the mean, over
     the unbiased std (+1e-12 inside the root, +1e-5 outside)."""
@@ -91,19 +103,19 @@ def _ws(ar, sd, name, x, stride=1, padding=0, dilation=1):
                 sd.get(name + ".bias"), stride, padding, dilation)
 
 
-def _gn(ar, sd, name, x):
-    return group_norm(ar, x, sd[name + ".weight"], sd[name + ".bias"])
+def _gn(ar, sd, name, x, residual=None):
+    return group_norm(ar, x, sd[name + ".weight"], sd[name + ".bias"],
+                      residual=residual)
 
 
 def _bottleneck(ar, sd, p, x, stride, dilation):
     out = F.relu(_gn(ar, sd, p + "bn1", _ws(ar, sd, p + "conv1", x)))
     out = F.relu(_gn(ar, sd, p + "bn2", _ws(ar, sd, p + "conv2", out, stride,
                                             dilation, dilation)))
-    out = _gn(ar, sd, p + "bn3", _ws(ar, sd, p + "conv3", out))
     if p + "downsample.0.weight" in sd:
         x = _gn(ar, sd, p + "downsample.1",
                 _ws(ar, sd, p + "downsample.0", x, stride))
-    return F.relu(out + x)
+    return F.relu(_gn(ar, sd, p + "bn3", _ws(ar, sd, p + "conv3", out), x))
 
 
 def _conv_gn_lrelu(ar, sd, name, gn_name, x):

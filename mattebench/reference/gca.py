@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from mattebench.reference.common import (Arith, batch_norm, conv,
-                                         conv_transpose, matmul,
-                                         resize_nearest)
+                                         conv_transpose, matmul, nchw,
+                                         preprocess, resize_nearest)
 
 TRIMAP_CHANNELS = 3
 SHORTCUTS = ((6, 32), (32, 32), (64, 64), (128, 128), (256, 256))
@@ -104,6 +104,15 @@ def spec(config: dict) -> dict[str, tuple[int, ...]]:
         out[f"decoder.fam.{n}_conv.weight"] = (c, c, 3, 3)
         out[f"decoder.fam.{n}_conv.bias"] = (c,)
     return out
+
+
+def prepare(img_u8: torch.Tensor, tri_u8: torch.Tensor) -> dict:
+    """The 6-channel input ``x`` (normalized RGB, the one-hot trimap) and
+    the unknown mask ``trimask``, NCHW f32, of uint8 frames and trimaps;
+    no ``extras``."""
+    pre = preprocess(img_u8, tri_u8, TRIMAP_CHANNELS)
+    return dict(x=nchw(torch.cat([pre["imgs"], pre["tris"]], dim=-1)),
+                extras=None, trimask=nchw(pre["trimask"]))
 
 
 def _sn_weight(ar: Arith, sd: dict, name: str) -> torch.Tensor:

@@ -1,12 +1,17 @@
-"""The yardstick's counts against counts worked by hand at small shapes."""
+"""The yardstick's counts against counts worked by hand at small shapes,
+and against the numbers it gave before the kernels' work moved into
+``mattebench/kernels/`` (pinned to the bit)."""
 from __future__ import annotations
 
 import json
 
+import pytest
 import torch
 
-from mattebench import counts, reference
+from mattebench import counts, harness, reference
+from mattebench.kernels import edt_row, fam_window, group_norm
 from mattebench.tests.tiny import REPO
+from mattebench.traffic import closed_stream
 
 
 def test_peaks_are_the_data_sheet():
@@ -20,13 +25,13 @@ def test_fam_counts_by_hand():
     # 3 x 3 grid, window 3, 2 channels, the whole grid unknown: corners see
     # 4 in-frame neighbours (themselves included), edges 6, the centre 9
     mask = torch.ones(1, 3, 3)
-    nbytes, ops = counts.fam_counts(mask, 2, 3, 2)
+    nbytes, ops = fam_window.fam_counts(mask, 2, 3, 2)
     assert nbytes == (3 * 9 * 2 + 9) * 2
     assert ops == 4 * 2 * (4 * 4 + 4 * 6 + 9)
     # only the centre unknown, two rows of the batch
     mask = torch.zeros(2, 3, 3)
     mask[:, 1, 1] = 1
-    nbytes, ops = counts.fam_counts(mask, 2, 3, 4)
+    nbytes, ops = fam_window.fam_counts(mask, 2, 3, 4)
     assert nbytes == (3 * 18 * 2 + 18) * 4
     assert ops == 2 * 4 * 2 * 9
 
@@ -35,13 +40,13 @@ def test_fam_mask_is_the_unknown_region_at_the_grid():
     tri = torch.zeros(1, 16, 16, 1, dtype=torch.uint8)
     tri[0, 0:8, 8:16] = 128
     tri[0, 8:16, 0:8] = 255
-    mask = counts.fam_mask(tri, (2, 2))
+    mask = fam_window.fam_mask(tri, (2, 2))
     assert mask.tolist() == [[[False, True], [False, False]]]
 
 
 def test_edt_counts_by_hand():
-    assert counts.edt_rows(4, 1088) == 8704
-    assert counts.edt_counts(10, 7) == (8 * 70, 16 * 70)
+    assert edt_row.edt_rows(4, 1088) == 8704
+    assert edt_row.edt_counts(10, 7) == (8 * 70, 16 * 70)
 
 
 def test_flop_per_frame_by_hand():
@@ -100,3 +105,70 @@ def test_gca_count_holds_the_attention_core():
     rest_large = large - core(128)
     # the spectral norms' matrix-vector products do not grow with the frame
     assert abs(rest_large - 4 * rest_small) < 1e-3 * rest_large
+
+
+def config(name: str) -> dict:
+    return json.loads((REPO / "mattebench/configs" / f"{name}.json").read_text())
+
+
+# What the yardstick read before its kernels' work moved to
+# ``mattebench/kernels/`` and its methods' input to ``prepare``: FLOP of an
+# encode and a head at 1088 x 1920, and a small seeded traffic's work
+# (``program``) and FLOP a matte.
+PINNED = {
+    "vmn_fba": {"flop_per_frame": (2230794321920.0, 606901370880.0),
+                "work": {"fam_window": [3543552.0, 33882112.0, 989e12],
+                         "edt_row": [589824.0, 1179648.0, 33454080000000.0]},
+                "flop_per_matte": 8401261909.333333},
+    "vmn_gca": {"flop_per_frame": (1246206689280.0, 153078988800.0),
+                "work": {"fam_window": [1774080.0, 16941056.0, 989e12]},
+                "flop_per_matte": 2067466922.6666667},
+}
+
+
+def program(cfg: dict, height: int = 64, width: int = 96):
+    """The parts of a ``harness.Program`` that the counts read, for two
+    streams of a small traffic from a fixed seed."""
+    params = json.loads((REPO / "mattebench/traffic/stream_b4.json").read_text())
+    params.update(streams=2, height=height, width=width, pool_frames=3,
+                  trimap={"unknown": [12, 52, 8, 88],
+                          "foreground": [24, 40, 20, 70], "shift": 4})
+    prog = object.__new__(harness.Program)
+    prog.traffic = closed_stream.make(params, 2**31 + 11, "cpu")
+    prog.config, prog.params = cfg, params
+    return prog
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_the_yardstick_reads_what_it_read(name):
+    cfg, want = config(name), PINNED[name]
+    assert counts.flop_per_frame(cfg, 1088, 1920) == want["flop_per_frame"]
+    prog = program(cfg)
+    work = prog.work(3, [0, 1, 2, 3, 4, 239])
+    assert {k: work[k] for k in want["work"]} == want["work"]
+    assert prog.flop_per_matte() == want["flop_per_matte"]
+
+
+def test_group_norm_counts_by_hand():
+    """Every GroupNorm of FBA (one block a stage) at 64 x 64 in bf16: its
+    input read and its output written, and the residual read at each
+    bottleneck's last norm, in 2-byte elements."""
+    cfg = config("vmn_fba")
+    cfg["layers"] = [1, 1, 1, 1]
+    g2, g4, g8 = 32 * 32, 16 * 16, 8 * 8
+    encode = [(64, g2),                                   # the stem
+              (64, g4), (64, g4), (256, g4), (256, g4),   # layer1 + shortcut
+              (128, g4), (128, g8), (512, g8), (512, g8),
+              (256, g8), (256, g8), (1024, g8), (1024, g8),
+              (512, g8), (512, g8), (2048, g8), (2048, g8),
+              (256, 1), (256, 4), (256, 9), (256, 36),    # the PPM
+              (256, g8), (256, g8)]                       # conv_up1
+    residual = [256 * g4, 512 * g8, 1024 * g8, 2048 * g8]
+    head = [(256, g4), (64, g2)]
+    enc_bytes = 2 * (2 * sum(c * n for c, n in encode) + sum(residual))
+    head_bytes = 2 * 2 * sum(c * n for c, n in head)
+    assert group_norm.per_frame(cfg, 64, 64, torch.bfloat16) == (
+        float(enc_bytes), float(head_bytes))
+    prog = program(cfg, 64, 64)
+    assert prog.work(3, [0, 1])["group_norm"] == [
+        2 * (3 * enc_bytes + 2 * head_bytes), 0.0, counts.PEAK_F32_ADD_MIN]

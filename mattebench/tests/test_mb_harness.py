@@ -9,6 +9,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -70,17 +71,53 @@ def test_manifest_names_units_and_files():
                             if w["name"] in x.get("workloads", [w["name"]])}
                 for w in m["workloads"]}
     for x in m["per_layer"]:
-        assert (REPO / "mattebench/metrics" / f"{x['name']}.py").exists()
+        assert reader_file(x["name"]).exists()
         assert all(x["moves"] in reported[w] for w in x["workloads"])
     for x in m["end_to_end"]:
-        assert (REPO / "mattebench/metrics" / f"{x['name']}.py").exists()
+        assert reader_file(x["name"]).exists()
     for c in m["configs"]:
         assert c["file"].startswith("mattebench/")
-        assert json.loads((REPO / c["file"]).read_text())["name"] == c["name"]
+        cfg = json.loads((REPO / c["file"]).read_text())
+        assert cfg["name"] == c["name"]
+        assert (REPO / "mattebench/reference" / f"{cfg['method']}.py").exists()
+        for k in cfg["kernels"]:
+            assert (REPO / "mattebench/kernels" / f"{k}.py").exists()
     for w in m["workloads"]:
         assert w["chips"] == 1 and len(w["why"]) <= 200
         assert (REPO / "mattebench/traffic" / f"{w['traffic']}.json").exists()
         assert len(reported[w["name"]] - {"setup_s"}) >= 1
+
+
+def reader_file(name: str) -> Path:
+    """The reader of a metric: its own file, else that of the quantity it
+    splits (``<metric>.<part>``)."""
+    own = REPO / "mattebench/metrics" / f"{name}.py"
+    return own if own.exists() else own.with_name(name.split(".")[0] + ".py")
+
+
+def test_the_host_paced_cell_has_metrics_of_its_own():
+    """``fba_live``'s rate and per-layer metrics are split from the batch
+    cells' (``<metric>.live``), so that its wider bound is its own; a
+    split metric is read by the reader of the quantity it splits."""
+    live = harness.Cell(REPO, "fba_live")
+    assert [x["name"] for x in live.end_to_end] == [
+        "mattes_per_s.live", "matte_p95_ms", "setup_s"]
+    assert live.per_layer and all(x["name"].endswith(".live")
+                                  for x in live.per_layer)
+    bounds = {x["name"]: x["bound"] for x in live.end_to_end}
+    for name in ("gca_batch8", "fba_batch4"):
+        cell = harness.Cell(REPO, name)
+        assert {x["name"]: x["bound"] for x in cell.end_to_end} == {
+            "mattes_per_s": 0.02, "setup_s": 0.25}
+        assert not any(x["name"].endswith(".live") for x in cell.per_layer)
+    assert bounds["mattes_per_s.live"] == 0.25
+    for x in live.end_to_end + live.per_layer:
+        base = x["name"].removesuffix(".live")
+        want = harness.load_module(reader_file(base), "reader_" + base)
+        assert (live.metric(x).read(canned_record())
+                == want.read(canned_record()))
+    with pytest.raises(harness.Refused, match="nothing.py"):
+        live.metric({"name": "nothing.live"})
 
 
 def canned_record() -> dict:
@@ -130,10 +167,29 @@ def test_readers_find_nothing_without_a_profile():
     record = canned_record()
     del record["profile"], record["rate_outside"]
     for name in ("encode_ms", "decode_ms", "fam_window_roofline",
-                 "edt_row_roofline", "idle_share", "step_mfu"):
+                 "edt_row_roofline", "group_norm_roofline", "idle_share",
+                 "step_mfu"):
         module = harness.load_module(REPO / "mattebench/metrics" / f"{name}.py",
                                      "reader_" + name)
         assert module.read(record) is None
+
+
+def test_group_norm_roofline_reads_its_kernels_only():
+    """The program's statistics and apply kernels (4 + 6 us) against a
+    bound of 5 us; PyTorch's own GroupNorm kernels are not counted."""
+    record = {"profile": {
+        "ops": [["void (anonymous namespace)::group_norm_stats<bf16>", 0.0,
+                 4.0, 1],
+                ["void (anonymous namespace)::group_norm_apply<bf16, 1>", 4.0,
+                 6.0, 2],
+                ["void at::native::RowwiseMomentsCUDAKernel<float>", 10.0,
+                 9.0, 3]],
+        "work": {"group_norm": [3.35e12 * 5e-6, 0.0, 33.4e12]}}}
+    module = harness.load_module(REPO / "mattebench/metrics/group_norm_roofline.py",
+                                 "reader_group_norm_roofline")
+    assert module.read(record) == pytest.approx(50.0, rel=1e-9)
+    del record["profile"]["work"]["group_norm"]
+    assert module.read(record) is None
 
 
 def test_breakdown_labels_gaps_by_host_span():
@@ -206,6 +262,14 @@ def test_clean_run_is_correct(tiny_root):
     assert set(result["metrics"]) == {"mattes_per_s", "setup_s"}
     assert list(result)[-1] == "checks"
     assert result["attempted"] >= 2 and result["failed"] == 0
+
+
+def test_clean_run_of_the_live_cell_is_correct(tiny_root):
+    result = execute(tiny_root, "fba_live")
+    assert result["correct"] is True, result["checks"]
+    assert set(result["metrics"]) == {"mattes_per_s.live", "matte_p95_ms",
+                                      "setup_s"}
+    assert result["metrics"]["mattes_per_s.live"]["value"] > 0
 
 
 def _stale_state(orig):
