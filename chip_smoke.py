@@ -15,7 +15,9 @@ From the repo root, on a machine with a CUDA card and the CUDA toolkit:
    path's epilogues, bf16, to 2^-7 (1 + |value|) of the f32 composition), with
    CUDA-event times and the card's bound for the same work (GroupNorm's
    two kernels also apart, by the profiler, each beside its own bytes
-   bound, and PyTorch's F.group_norm as its library time);
+   bound, and PyTorch's F.group_norm as its library time; DIM's argmax
+   pool and unpool bit for bit at its five levels, bf16 and f32, each
+   kernel's device time beside its bytes bound and the plain ops');
 4. the main path in f32 at full width (vmn_fba, 1088x1920, window 7,
    random weights from a seed): once through the kernels, once with the
    plain versions substituted; the uint8 mattes agree within one level;
@@ -392,15 +394,26 @@ def with_norms(counts: dict, calls: int) -> dict:
             if calls else dict(counts))
 
 
+def with_pools(counts: dict, name: str, encodes: int, heads: int) -> dict:
+    """``counts`` with DIM's pool and unpool kernels where ``name`` is
+    DIM: five pools and two unpools a call of the encoder and the extract
+    half, three unpools a call of the head."""
+    if name != "dim":
+        return dict(counts)
+    return dict(counts, argmax_pool_fwd=5 * encodes,
+                argmax_pool_unpool=2 * encodes + 3 * heads)
+
+
 def plain_kernels(fam, edt_kernel, group_norm: bool = True):
     """A context in which the kernels' plain versions stand in for them
-    (GroupNorm's: the layer's plain ops). Without ``group_norm`` the
-    GroupNorm kernels stay: for the bf16 streams' holds against
+    (GroupNorm's: the layer's plain ops; DIM's pool and unpool: theirs).
+    Without ``group_norm`` the GroupNorm kernels stay: for the bf16
+    streams' holds against
     BF16_STREAM, which FBA's random weights would otherwise fail on any
     change of GroupNorm's rounding (PERF.md, kernel E)."""
     import contextlib
 
-    from tcvom_tpu_torch.ops import group_norm_kernel
+    from tcvom_tpu_torch.ops import argmax_pool_kernel, group_norm_kernel
 
     def plain_fam(q, k, mask, window, need_logits=False):
         out, lg = fam.fam_attention_ref(q, k, mask, window)
@@ -410,6 +423,12 @@ def plain_kernels(fam, edt_kernel, group_norm: bool = True):
     stack.enter_context(mock.patch.object(fam, "fam_attention", plain_fam))
     stack.enter_context(mock.patch.object(edt_kernel, "edt_row_pass",
                                           edt_kernel.edt_row_pass_ref))
+    stack.enter_context(mock.patch.object(
+        argmax_pool_kernel, "argmax_pool_cuda",
+        argmax_pool_kernel.max_pool_argmax_2x2_ref))
+    stack.enter_context(mock.patch.object(
+        argmax_pool_kernel, "argmax_unpool_cuda",
+        argmax_pool_kernel.max_unpool_2x2_ref))
     if group_norm:
         stack.enter_context(mock.patch.object(
             group_norm_kernel, "group_norm_cuda",
@@ -727,6 +746,99 @@ def check_group_norm(group_norm_kernel):
              apply_bound_share=3 * nbytes / HBM_BYTES_PER_S * 1e3 / apply_ms)
         del x, r, err
     return results
+
+
+# DIM's five pools at 1088x1920: (channels, H, W) of each pool's input
+# (the unpool of the same level writes a tensor of that shape)
+POOL_LEVELS = ((64, 1088, 1920), (128, 544, 960), (256, 272, 480),
+               (512, 136, 240), (512, 68, 120))
+
+
+def check_argmax_pool(argmax_pool_kernel):
+    """DIM's pool and unpool kernels (``argmax_pool_fwd``,
+    ``argmax_pool_unpool``) through the model's dispatch against the plain
+    ops on the card, bit for bit and in the same memory layout, at
+    POOL_LEVELS, batch 1 and 4, bf16 and f32, NCHW and channels-last (as
+    DIM's encoder holds them), on values with every pattern of ties (half
+    from {0, 1, 2}); in bf16 each kernel's device time by the profiler
+    beside its bytes bound (the larger side's values read or written, the
+    smaller side's values and uint8 indices): the NCHW pool and unpool,
+    the channels-last pool, and the whole unpool call given a
+    channels-last index (the index made contiguous first, as in DIM's
+    head) by CUDA events; the plain ops' CUDA-event time, and PyTorch's
+    F.max_pool2d / F.max_unpool2d (int64 flat indices: the same function
+    in another index format) as the library time. Returns the bf16 rows
+    by (batch, level)."""
+    import torch.nn.functional as F
+
+    from tcvom_tpu_torch.ops.image import max_pool_argmax_2x2, max_unpool_2x2
+
+    ak = argmax_pool_kernel
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for batch in (1, 4):
+            for level, shape in enumerate(POOL_LEVELS, 1):
+                g = torch.Generator(device="cuda").manual_seed(level)
+                x = torch.randint(0, 3, (batch,) + shape, generator=g,
+                                  device="cuda").to(dtype)
+                x[batch * shape[0] // 2:] = torch.randn(
+                    x[batch * shape[0] // 2:].shape, generator=g,
+                    device="cuda").to(dtype)
+                x_cl = x.to(memory_format=torch.channels_last)
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                for inp in (x, x_cl):
+                    y, idx = max_pool_argmax_2x2(inp)
+                    out = max_unpool_2x2(y, idx)
+                    want_y, want_idx = ak.max_pool_argmax_2x2_ref(inp)
+                    want = ak.max_unpool_2x2_ref(want_y, want_idx)
+                    same = (torch.equal(y.view(bits), want_y.view(bits))
+                            and torch.equal(idx, want_idx)
+                            and torch.equal(out.view(bits), want.view(bits))
+                            and (y.stride(), idx.stride(), out.stride())
+                            == (want_y.stride(), want_idx.stride(),
+                                want.stride()))
+                    emit(phase="check", kernel="argmax_pool",
+                         shape=[batch, *shape], dtype=str(dtype),
+                         channels_last=inp is x_cl, bit_identical=same)
+                    if not same:
+                        fail(f"argmax_pool {[batch, *shape]} {dtype}: the "
+                             "kernels differ from the plain ops")
+                    del want_y, want_idx, want
+                y_cl, idx_cl = max_pool_argmax_2x2(x_cl)
+                y, idx = max_pool_argmax_2x2(x)
+                if dtype != torch.bfloat16:
+                    continue
+                n, size = x.numel(), x.element_size()
+                nbytes = n * size + n // 4 * (size + 1)
+                pool_ms = device_ms(lambda: max_pool_argmax_2x2(x), 10,
+                                    "argmax_pool_fwd")
+                unpool_ms = device_ms(lambda: max_unpool_2x2(y, idx), 10,
+                                      "argmax_pool_unpool")
+                b_ms, b_by = bound(nbytes, 0, dtype)
+                flat = F.max_pool2d(x, 2, 2, return_indices=True)[1]
+                res[(batch, level)] = row = dict(
+                    shape=[batch, *shape], dtype="bfloat16",
+                    pool_ms=pool_ms, unpool_ms=unpool_ms, bound_ms=b_ms,
+                    bound_by=b_by,
+                    plain_pool_ms=time_ms(
+                        lambda: ak.max_pool_argmax_2x2_ref(x), 10),
+                    plain_unpool_ms=time_ms(
+                        lambda: ak.max_unpool_2x2_ref(y, idx), 10),
+                    library_pool_ms=time_ms(lambda: F.max_pool2d(
+                        x, 2, 2, return_indices=True), 10),
+                    library_unpool_ms=time_ms(lambda: F.max_unpool2d(
+                        y, flat, 2, 2, output_size=shape[1:]), 10),
+                    pool_channels_last_ms=device_ms(
+                        lambda: max_pool_argmax_2x2(x_cl), 10,
+                        "argmax_pool_fwd"),
+                    unpool_channels_last_index_call_ms=time_ms(
+                        lambda: max_unpool_2x2(y, idx_cl), 10))
+                emit(phase="time", kernel="argmax_pool", **row,
+                     pool_bound_share=b_ms / pool_ms,
+                     unpool_bound_share=b_ms / unpool_ms)
+                del x, y, idx, out, flat, x_cl, y_cl, idx_cl
+    torch.cuda.empty_cache()
+    return res
 
 
 def check_fam_logits(fam, fam_kernel):
@@ -1379,7 +1491,7 @@ def train_backbone_phase(name: str, fam, edt_kernel, cuda_build,
     val_counts = dict(cuda_build.LAUNCHES)
     emit(phase=f"val_dt_{name}", shape=[6, 3, 544, 960], value=value.item(),
          launches=val_counts, ms=val_ms)
-    if val_counts != {"fam_window_logits": 1}:
+    if val_counts != with_pools({"fam_window_logits": 1}, name, 1, 1):
         fail(f"{name} validation launch counts {val_counts}")
     if not np.isfinite(value.item()) or alpha_c.shape != (6, 544, 960, 1):
         fail(f"{name} validation value {value.item()}, alpha "
@@ -2191,9 +2303,10 @@ def pred_vmn_space_phase(tmp, root, refs: dict) -> dict:
     their limits are set in the same run by the one-process sweep again
     with every weight moved by a relative ``JITTER``. Holds each rank's
     launches (``fam_window_logits`` 4, ``edt_row`` 4 for FBA and 0 for
-    the rest); prints each rank's band, kernel D's shapes, step seconds a
-    sample and peak beside the one-process sweep's, and the band
-    exchanges a sample. Returns both ranks' launches by model."""
+    the rest, DIM's pool and unpool kernels 20 each); prints each rank's
+    band, kernel D's shapes, step seconds a sample and peak beside the
+    one-process sweep's, and the band exchanges a sample. Returns both
+    ranks' launches by model."""
     from tcvom_tpu_torch.data.vmd import VideoMattingDataset
     from tcvom_tpu_torch.infer.predict import TRIMAP_DILATION
     from tcvom_tpu_torch.models.full_model import TaskConfig, forward_vmd
@@ -2312,10 +2425,11 @@ def pred_vmn_space_phase(tmp, root, refs: dict) -> dict:
                 or rel > rtol:
             fail(f"pred_vmn --space 2 --model {model}: PNGs {bad}, losses "
                  f"{got} against {want}")
-        want_counts = with_norms(
+        want_counts = with_pools(with_norms(
             {"fam_window_logits": samples,
              "edt_row": samples if model == "fba" else 0},
-            FBA_PPM_NORMS * samples if model == "fba" else 0)
+            FBA_PPM_NORMS * samples if model == "fba" else 0),
+            model, samples, samples)
         if any(rk["launches"].get(k, 0) != n for rk in ranks
                for k, n in want_counts.items()):
             fail(f"pred_vmn --space 2 --model {model}: launches "
@@ -2464,8 +2578,9 @@ def backbone_phase(name: str, fam, edt_kernel, cuda_build,
         f"main_{name}_f32", want, got, launches=f32_counts,
         decode_ms=dec32_ms, unknown_share_random_weights=share_random,
         weights_calibrated=calibrated, unknown_share=share)
-    if f32_counts != {"fam_window": 4}:
-        fail(f"{name} f32 launch counts {f32_counts}, want 4 decodes")
+    if f32_counts != with_pools({"fam_window": 4}, name, 4, 4):
+        fail(f"{name} f32 launch counts {f32_counts}, want 4 decodes (and "
+             "DIM's pools and unpools of 4 encodes and 4 decodes)")
     if share < LIVE_SHARE:
         fail(f"{name} f32 mattes saturated: {share:.6f} of the unknown "
              "pixels strictly between 0 and 255")
@@ -2484,8 +2599,9 @@ def backbone_phase(name: str, fam, edt_kernel, cuda_build,
     mem_gib = torch.cuda.max_memory_allocated() / 2**30
     n = len(frames)
     check_mattes(outs, frames, f"{name} bf16")
-    if counts != {"fam_window": n}:
-        fail(f"{name} bf16 launch counts {counts}, want {n} decodes")
+    if counts != with_pools({"fam_window": n}, name, n, n):
+        fail(f"{name} bf16 launch counts {counts}, want {n} decodes (and "
+             f"DIM's pools and unpools of {n} encodes and {n} decodes)")
     want = run_plain_stream(sp, frames, fam, edt_kernel, cuda_build)
     with mock.patch.object(fam, "fam_attention", fam_ref_tpu_weights):
         tpu = run_stream(sp, frames)
@@ -2562,8 +2678,9 @@ def random_checkpoint(name: str, tmp):
 def pred_single_phase(name: str, tmp, root, cuda_build):
     """tools/pred_single.py with the single-frame ``name`` (DIM or GCA,
     random weights through a .pth) on pred_vmn's clip: f32, B = 1,
-    1088x1920, medium trimaps, the samples read in this process. No kernel
-    is on this path: there is no FAM, and neither trimap has an EDT."""
+    1088x1920, medium trimaps, the samples read in this process. There is
+    no FAM, and neither trimap has an EDT: DIM's pools and unpools (five
+    of each a sample) are the only kernels on this path."""
     from tcvom_tpu_torch.tools import pred_single
 
     ckpt, save = random_checkpoint(name, tmp), tmp / f"pred_single_{name}"
@@ -2581,7 +2698,7 @@ def pred_single_phase(name: str, tmp, root, cuda_build):
     emit(phase="pred_single", model=name, samples=4, shape=[1, 3, H, W],
          result=res, seconds=secs, s_per_sample=secs / 4, launches=counts,
          written=len(written))
-    if counts:
+    if counts != with_pools({}, name, 4, 4):
         fail(f"pred_single {name} launched kernels: {counts}")
     if not all(np.isfinite(v) for v in res.values()):
         fail(f"pred_single {name} results {res}")
@@ -2788,12 +2905,14 @@ def main():
     from tcvom_tpu_torch.models.full_model import TaskConfig
     from tcvom_tpu_torch.models.registry import build_model
     from tcvom_tpu_torch.models.layers import GroupNorm
-    from tcvom_tpu_torch.ops import (cuda_build, distance, edt_kernel, fam,
-                                     fam_kernel, group_norm_kernel)
+    from tcvom_tpu_torch.ops import (argmax_pool_kernel, cuda_build, distance,
+                                     edt_kernel, fam, fam_kernel,
+                                     group_norm_kernel)
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = cuda_build.build(["edt_row", "fam_window", "group_norm"])
+    logs = cuda_build.build(["edt_row", "fam_window", "group_norm",
+                             "argmax_pool"])
     emit(phase="build", seconds=time.perf_counter() - t0,
          per_source={n: log["seconds"] for n, log in logs.items()})
     for name, log in logs.items():
@@ -2811,6 +2930,7 @@ def main():
     edt_res = check_edt(edt_kernel, distance, frames[0][1])
     fam_res = check_fam(fam, fam_kernel)
     gn_res = check_group_norm(group_norm_kernel)
+    pool_res = check_argmax_pool(argmax_pool_kernel)
 
     # -- 4. main path, f32, kernels vs plain -----------------------------------
     cfg = TaskConfig(model="vmn_fba", agg_window=WINDOW)
@@ -3081,6 +3201,13 @@ def main():
         for name, c in (("fba", 256), ("dim", 256), ("index", 32),
                         ("gca", 128))]
     kernels += [dict(edt, path=path, **r) for path, r in adobe_res.items()]
+    pool = dict(name="argmax_pool", route="cuda",
+                source="tcvom_tpu_torch/csrc/argmax_pool.cu",
+                replaces="none (XLA's fusion of tcvom_tpu/ops/image.py's "
+                         "max_pool_argmax_2x2 and max_unpool_2x2)",
+                launches=streams["dim"]["bf16"]["argmax_pool_fwd"])
+    kernels += [dict(pool, path="stream_dim_bf16", **r)
+                for (batch, _), r in sorted(pool_res.items()) if batch == 1]
     train_res = {"fba": logits_res[(6, 64, 64, 256)],
                  "dim": train_width_res[(24, 64, 64, 256)],
                  "index": train_width_res[(24, 64, 64, 32)],

@@ -3,7 +3,9 @@
 A VGG16 encoder with BatchNorm and five argmax max-pools, ``conv6`` 7x7
 512 -> 4096, and a decoder that max-unpools with the recorded indices
 (reference models/DIM/vggnet.py:10-133, models/VMN/VMN_DIM.py). Input is
-4 channels: normalized RGB and the 1-channel trimap; output is alpha.
+4 channels: normalized RGB and the 1-channel trimap; output is alpha. The
+pools and unpools (hand-written kernels on the card, ``ops/image.py``)
+record the spans ``tcvom.pool`` and ``tcvom.unpool``.
 Module names are the reference's ``state_dict`` keys: flat for the
 single-frame model, under ``encoder.`` and ``decoder.`` in the VMN.
 """
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 
 from tcvom_tpu_torch.models.layers import BatchNorm, Conv2d
 from tcvom_tpu_torch.ops.image import max_pool_argmax_2x2, max_unpool_2x2
+from tcvom_tpu_torch.utils.trace import span
 
 _STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
 # the encoder's modules, which the single-frame model keeps beside the
@@ -43,7 +46,8 @@ def _encode(m: nn.Module, x: torch.Tensor) -> dict:
         for j in range(1, n_convs + 1):
             x = F.relu(getattr(m, f"bn{stage}{j}")(
                 getattr(m, f"conv{stage}{j}")(x)))
-        x, idx = max_pool_argmax_2x2(x)
+        with span("pool"):
+            x, idx = max_pool_argmax_2x2(x)
         idxs.append(idx)
     return {"indices": tuple(idxs), "x6": F.relu(m.conv6(x))}
 
@@ -86,7 +90,9 @@ class DIMDecoder(nn.Module):
         return {"indices": (i1, i2, i3, None, None)}
 
     def _up(self, name: str, x, idx):
-        return F.relu(getattr(self, name)(max_unpool_2x2(x, idx)))
+        with span("unpool"):
+            x = max_unpool_2x2(x, idx)
+        return F.relu(getattr(self, name)(x))
 
     def forward(self, enc: dict, mode: str = "full", x=None) -> torch.Tensor:
         i1, i2, i3, i4, i5 = enc["indices"]

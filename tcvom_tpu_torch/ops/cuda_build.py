@@ -49,29 +49,40 @@ def library_path(name: str) -> Path:
 
 def build(names) -> dict[str, dict]:
     """Compile the named sources that are not built yet, all ``nvcc``
-    processes at once; raise with the compiler output if one fails."""
+    processes at once; raise with the compiler output if one fails.
+    A missing source raises before any ``nvcc`` starts, and an error while
+    they run kills them: no compiler outlives the call."""
+    libs = {name: library_path(name) for name in names}
     procs = {}
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
-            BUILD_LOG.setdefault(name, {"seconds": 0.0, "output": "",
-                                        "cached": True})
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib, time.perf_counter())
     failed = []
-    for name, (proc, tmp, lib, t0) in procs.items():
-        output, _ = proc.communicate()
-        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
-                           "output": output, "cached": False}
-        if proc.returncode:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{output}")
-        else:
-            os.replace(tmp, lib)
+    try:
+        for name, lib in libs.items():
+            if lib.exists():
+                BUILD_LOG.setdefault(name, {"seconds": 0.0, "output": "",
+                                            "cached": True})
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True),
+                           tmp, lib, time.perf_counter())
+        for name, (proc, tmp, lib, t0) in procs.items():
+            output, _ = proc.communicate()
+            BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                               "output": output, "cached": False}
+            if proc.returncode:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n"
+                              f"{output}")
+            else:
+                os.replace(tmp, lib)
+    finally:
+        for proc, *_ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {n: BUILD_LOG[n] for n in names}

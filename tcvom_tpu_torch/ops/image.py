@@ -6,7 +6,8 @@ operators: ``F.interpolate``, ``F.max_pool2d``, ``F.adaptive_avg_pool2d``,
 ``F.avg_pool2d``, ``F.pixel_shuffle`` and ``F.pad`` (GCA's
 :func:`reflection_pad`). DIM's argmax pool keeps its index as the
 in-window position (uint8), as the JAX one does, not as torch's flat
-int64 (:func:`max_pool_argmax_2x2`).
+int64 (:func:`max_pool_argmax_2x2`); on the card it and its unpool run as
+hand-written kernels (``ops/argmax_pool_kernel.py``).
 
 In band mode (``parallel.space``: the input is this rank's horizontal
 band of each frame) the resizes and pools that couple rows take their
@@ -30,6 +31,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from tcvom_tpu_torch.ops import argmax_pool_kernel
 from tcvom_tpu_torch.parallel import space
 
 
@@ -120,31 +122,23 @@ def max_pool_argmax_2x2(x: torch.Tensor
     [0, 4), row-major, the first on ties, as ``nn.MaxPool2d(2, 2,
     return_indices=True)`` picks it. A quarter of torch's int64 flat index:
     a stream caches three levels of it per frame. Within the band in band
-    mode."""
-    n, c, h, w = x.shape
-    _local(x, h // 2)
-    xv = x.view(n, c, h // 2, 2, w // 2, 2)
-    a, b = xv[:, :, :, 0, :, 0], xv[:, :, :, 0, :, 1]
-    d, e = xv[:, :, :, 1, :, 0], xv[:, :, :, 1, :, 1]
-    # each pair keeps its first element unless the second is larger, and
-    # the second pair wins only if strictly larger: the first max overall
-    top, bottom = torch.maximum(a, b), torch.maximum(d, e)
-    idx = torch.where(bottom > top, (e > d).to(torch.uint8) + 2,
-                      (b > a).to(torch.uint8))
-    return torch.maximum(top, bottom), idx
+    mode. The plain ops on the CPU and where a gradient is needed, else
+    the kernel (``ops/argmax_pool_kernel.py``), bit for bit the same."""
+    _local(x, x.shape[-2] // 2)
+    if argmax_pool_kernel.runs_plain(x):
+        return argmax_pool_kernel.max_pool_argmax_2x2_ref(x)
+    return argmax_pool_kernel.argmax_pool_cuda(x)
 
 
 def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`max_pool_argmax_2x2`: each value of ``[N, C, h, w]``
     goes to its recorded in-window slot of ``[N, C, 2h, 2w]``, zeros
-    elsewhere (``nn.MaxUnpool2d(2, 2)``). Within the band in band mode."""
-    n, c, h, w = x.shape
-    _local(x, 2 * h)
-    slot = torch.arange(4, dtype=idx.dtype, device=idx.device).view(
-        1, 1, 1, 2, 1, 2)
-    out = torch.where(idx[:, :, :, None, :, None] == slot,
-                      x[:, :, :, None, :, None], 0.0)
-    return out.reshape(n, c, 2 * h, 2 * w)
+    elsewhere (``nn.MaxUnpool2d(2, 2)``). Within the band in band mode.
+    Dispatched as :func:`max_pool_argmax_2x2` is."""
+    _local(x, 2 * x.shape[-2])
+    if argmax_pool_kernel.runs_plain(x):
+        return argmax_pool_kernel.max_unpool_2x2_ref(x, idx)
+    return argmax_pool_kernel.argmax_unpool_cuda(x, idx)
 
 
 def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -411,8 +411,9 @@ def test_launch_counts(dev, rng):
 @pytest.mark.parametrize("name", ["vmn_fba", "vmn_dim", "vmn_index",
                                   "vmn_gca"])
 def test_stream_on_card_matches_cpu(dev, rng, name):
-    """Small f32 stream through both kernels (FBA; the FAM kernel alone at
-    C = 256 for DIM, C = 32 for IndexNet and C = 128 for GCA, whose
+    """Small f32 stream through both kernels (FBA; the FAM kernel at C =
+    256 for DIM, with its pool and unpool kernels, C = 32 for IndexNet and
+    C = 128 for GCA, whose
     weights are first calibrated so that the mattes are not all 0, GCA's
     spectral-norm vectors set to its weights' singular vectors before)
     against the CPU (plain) run of the same weights: uint8 mattes within
@@ -449,6 +450,9 @@ def test_stream_on_card_matches_cpu(dev, rng, name):
                 name != "vmn_fba" else {"fam_window": 3, "edt_row": 3,
                                         "group_norm_stats": norms,
                                         "group_norm_apply": norms})
+        if where == "cuda" and name == "vmn_dim":
+            # DIM: 5 pools and 2 unpools an encode, 3 unpools a decode
+            want.update(argmax_pool_fwd=15, argmax_pool_unpool=15)
         assert cuda_build.LAUNCHES == want
     unknown = np.broadcast_to(tri[..., 0] == 128, outs["cpu"].shape)
     assert ((outs["cpu"][unknown] > 0) & (outs["cpu"][unknown] < 255)
